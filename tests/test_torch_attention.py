@@ -88,3 +88,22 @@ def test_kernel_matches_plain_version_on_card(dtype):
         else:
             rtol, atol = 0.0, float(want.abs().max()) * 2.0 ** -7
         torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_inputs_that_need_a_gradient_on_card():
+    """The kernel has no backward (nor had the Pallas kernel): on the card
+    the wrapper raises rather than return an output with no grad_fn; under
+    no_grad it launches as before. On the CPU the plain version stays
+    differentiable."""
+    q, k, v = (torch.from_numpy(a).requires_grad_(True)
+               for a in _qkv((1, 16, 2, 8), seed=4))
+    attention(q, k, v).sum().backward()
+    assert q.grad is not None
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    qc = q.detach().cuda().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="forward only"):
+        attention(qc, qc.detach(), qc.detach())
+    with torch.no_grad():
+        attention(qc, qc, qc)

@@ -128,11 +128,21 @@ def test_forward_ego_parity(models):
 
 
 def test_compute_aux_and_other_families_raise(models):
+    """compute_aux (training's maps) is ported and matches the JAX
+    package; the other backbone families still raise."""
     import dataclasses
 
-    cfg, _, _, tm, x = models
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm(*_torch_args(x), compute_aux=True)
+    cfg, jm, variables, tm, x = models
+    want = jax.jit(lambda v, *a: jm.apply(v, *a, train=False,
+                                          compute_aux=True))(
+        variables, *[jnp.asarray(x[k]) for k in ("rgb", "lidar", "tp",
+                                                 "tpi", "vel")])
+    with torch.no_grad():
+        got = tm(*_torch_args(x), compute_aux=True)
+    assert set(got) == set(want)
+    for k in ("pred_bev", "pred_semantic", "pred_depth"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
     other = cfg.replace(model=dataclasses.replace(cfg.model,
                                                   backbone="late_fusion"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,10 +1,12 @@
-"""BEV FPN top-down decoder (counterpart of ``TopDown`` in
-transfuser_tpu/models/decoders.py; reference transfuser.py:99-118).
+"""BEV FPN top-down decoder and the image-space seg/depth decoders
+(counterpart of transfuser_tpu/models/decoders.py; reference
+transfuser.py:99-118 and 214-281).
 
 The reference registers the four 1x1 convs on the backbone itself
 (``c5_conv``, ``up_conv5``, ...), so ``top_down`` is a function of those
-convs that both ``TopDown`` and the backbone call. NCHW. The seg/depth
-decoders are training-only aux heads and are still to be ported.
+convs that both ``TopDown`` and the backbone call. The seg/depth
+decoders keep the reference's ``deconv{1,2,3}`` Sequential names. NCHW;
+bilinear upsampling with align_corners=False, as the JAX package.
 """
 
 from __future__ import annotations
@@ -52,3 +54,42 @@ class TopDown(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return top_down(self.c5_conv, self.up_conv5, self.up_conv4,
                         self.up_conv3, x, self.upsample_factor)
+
+
+class DeconvStack(nn.Module):
+    """Shared 3-stage conv + upsample trunk of the seg/depth decoders."""
+
+    def __init__(self, cin: int, c1: int, c2: int, c3: int, cout: int,
+                 scale_1: int = 8, scale_2: int = 4):
+        super().__init__()
+        self.deconv1 = nn.Sequential(Conv2d(cin, c1, 3, 1, 1), nn.ReLU(),
+                                     Conv2d(c1, c2, 3, 1, 1), nn.ReLU())
+        self.deconv2 = nn.Sequential(Conv2d(c2, c3, 3, 1, 1), nn.ReLU(),
+                                     Conv2d(c3, c3, 3, 1, 1), nn.ReLU())
+        self.deconv3 = nn.Sequential(Conv2d(c3, c3, 3, 1, 1), nn.ReLU(),
+                                     Conv2d(c3, cout, 3, 1, 1))
+        self.scales = (scale_1, scale_2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.deconv1(x)
+        h, w = x.shape[2:]
+        x = self.deconv2(resize_bilinear_nchw(
+            x, (h * self.scales[0], w * self.scales[0])))
+        h, w = x.shape[2:]
+        return self.deconv3(resize_bilinear_nchw(
+            x, (h * self.scales[1], w * self.scales[1])))
+
+
+class SegDecoder(DeconvStack):
+    """(B, C, h, w) image features -> (B, num_class, H, W) logits."""
+
+
+class DepthDecoder(DeconvStack):
+    """(B, C, h, w) image features -> (B, H, W) depth in (0, 1)."""
+
+    def __init__(self, cin: int, c1: int, c2: int, c3: int,
+                 scale_1: int = 8, scale_2: int = 4):
+        super().__init__(cin, c1, c2, c3, 1, scale_1, scale_2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(super().forward(x)[:, 0])

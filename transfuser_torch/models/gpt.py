@@ -3,58 +3,90 @@
 
 Reference: team_code_transfuser/transfuser.py:284-366 (GPT), 491-549
 (SelfAttention/Block); parameter names are the reference's. Attention
-goes through ``ops.attention.attention``: the hand-written CUDA kernel on
-the card. The JAX package's training branch (explicit probabilities for
-attention dropout) is still to be ported, so a module in training mode
-raises.
+goes through ``ops.attention.attention`` (the hand-written CUDA kernel on
+the card) except in training with ``attn_pdrop > 0``, where it keeps
+explicit probabilities for attention dropout, as the JAX package does
+(gpt.py:56-64). Dropout sits where the JAX package puts it: on the
+embeddings, on the attention probabilities, after the attention
+projection and after the MLP; only in training mode.
+
+Dropout masks come from the ``torch.Generator`` the caller passes (the
+trainer seeds one per step from ``config.train.seed`` and the step), or
+from torch's default generator. They cannot equal the JAX package's
+``fold_in`` stream: the two frameworks draw different bits from one seed.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..ops.attention import attention
+from ..ops.dtypes import acc_dtype
 from .layers import LayerNorm, Linear
+
+Generator = Optional[torch.Generator]
+
+
+def dropout(x: torch.Tensor, rate: float, gen: Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate) in x's dtype."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class SelfAttention(nn.Module):
-    def __init__(self, n_embd: int, n_head: int):
+    def __init__(self, n_embd: int, n_head: int, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0):
         super().__init__()
         self.key = Linear(n_embd, n_embd)
         self.query = Linear(n_embd, n_embd)
         self.value = Linear(n_embd, n_embd)
         self.proj = Linear(n_embd, n_embd)
         self.n_head = n_head
+        self.attn_pdrop = attn_pdrop
+        self.resid_pdrop = resid_pdrop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the GPT's training path (attention dropout) is still to "
-                "be ported (ROADMAP.md, queue 1)")
+    def forward(self, x: torch.Tensor, gen: Generator = None) -> torch.Tensor:
         b, t, c = x.shape
         hs = c // self.n_head
         q = self.query(x).reshape(b, t, self.n_head, hs)
         k = self.key(x).reshape(b, t, self.n_head, hs)
         v = self.value(x).reshape(b, t, self.n_head, hs)
-        return self.proj(attention(q, k, v).reshape(b, t, c))
+        if self.training and self.attn_pdrop > 0.0:
+            acc = acc_dtype(x.dtype)
+            att = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc))
+            att = torch.softmax(att * (1.0 / math.sqrt(hs)), dim=-1)
+            att = dropout(att.to(x.dtype), self.attn_pdrop, gen)
+            y = torch.einsum("bhts,bshd->bthd", att, v)
+        else:
+            y = attention(q, k, v)
+        y = self.proj(y.reshape(b, t, c))
+        return dropout(y, self.resid_pdrop, gen) if self.training else y
 
 
 class Block(nn.Module):
-    def __init__(self, n_embd: int, n_head: int, block_exp: int):
+    def __init__(self, n_embd: int, n_head: int, block_exp: int,
+                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0):
         super().__init__()
         self.ln1 = LayerNorm(n_embd, eps=1e-5)
         self.ln2 = LayerNorm(n_embd, eps=1e-5)
-        self.attn = SelfAttention(n_embd, n_head)
+        self.attn = SelfAttention(n_embd, n_head, attn_pdrop, resid_pdrop)
         self.mlp = nn.Sequential(
             Linear(n_embd, block_exp * n_embd), nn.ReLU(),
             Linear(block_exp * n_embd, n_embd))
+        self.resid_pdrop = resid_pdrop
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, gen: Generator = None) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), gen)
+        h = self.mlp(self.ln2(x))
+        return x + (dropout(h, self.resid_pdrop, gen) if self.training
+                    else h)
 
 
 class GPTFusion(nn.Module):
@@ -70,7 +102,8 @@ class GPTFusion(nn.Module):
     def __init__(self, n_embd: int, n_head: int = 4, n_layer: int = 4,
                  block_exp: int = 4, img_anchors: Tuple[int, int] = (5, 22),
                  lidar_anchors: Tuple[int, int] = (8, 8),
-                 use_velocity: bool = True,
+                 embd_pdrop: float = 0.0, attn_pdrop: float = 0.0,
+                 resid_pdrop: float = 0.0, use_velocity: bool = True,
                  reference_view_unpack: bool = False):
         super().__init__()
         self.n_embd = n_embd
@@ -81,12 +114,15 @@ class GPTFusion(nn.Module):
                  self.lidar_anchors[0] * self.lidar_anchors[1])
         self.pos_emb = nn.Parameter(torch.zeros(1, n_tok, n_embd))
         self.vel_emb = Linear(1, n_embd) if use_velocity else None
-        self.blocks = nn.Sequential(
-            *[Block(n_embd, n_head, block_exp) for _ in range(n_layer)])
+        self.embd_pdrop = embd_pdrop
+        self.blocks = nn.ModuleList(
+            [Block(n_embd, n_head, block_exp, attn_pdrop, resid_pdrop)
+             for _ in range(n_layer)])
         self.ln_f = LayerNorm(n_embd, eps=1e-5)
 
     def forward(self, image_tokens: torch.Tensor, lidar_tokens: torch.Tensor,
-                velocity: Optional[torch.Tensor] = None):
+                velocity: Optional[torch.Tensor] = None,
+                gen: Generator = None):
         b = image_tokens.shape[0]
         dt = image_tokens.dtype
         hi, wi = self.img_anchors
@@ -99,7 +135,11 @@ class GPTFusion(nn.Module):
             if velocity is None:
                 raise ValueError("GPTFusion with use_velocity needs velocity")
             x = x + self.vel_emb(velocity.reshape(b, 1).to(dt))[:, None, :]
-        x = self.ln_f(self.blocks(x))
+        if self.training:
+            x = dropout(x, self.embd_pdrop, gen)
+        for block in self.blocks:
+            x = block(x, gen)
+        x = self.ln_f(x)
         if self.reference_view_unpack:
             image_out = x[:, :n_img].reshape(b, self.n_embd, hi, wi)
             lidar_out = x[:, n_img:].reshape(b, self.n_embd, hl, wl)

@@ -11,10 +11,11 @@ Parameters stay fp32 and the model computes in ``self.dtype`` (bf16 by
 default), with the JAX package's fp32 islands. Public inputs and outputs
 are NHWC.
 
-Inference only, and only what ``forward_ego`` needs: the seg/depth
-decoders and the BEV head are held for checkpoint compatibility, but
-``compute_aux=True`` (training's aux maps) raises, as do the other
-backbone families and PointPillars.
+The transFuser family, with the BEV histogram or (``use_point_pillars``)
+the raw point cloud as LiDAR input. Training mode (``.train()``) is the
+JAX package's ``train=True``: BatchNorm on batch statistics, GPT dropout.
+``compute_aux=True`` adds the training-only maps ``pred_bev``,
+``pred_semantic`` and ``pred_depth``. The other backbone families raise.
 """
 
 from __future__ import annotations
@@ -26,26 +27,13 @@ import torch.nn as nn
 
 from ..config import GlobalConfig
 from ..ops import centernet as cn
-from ..ops.image_ops import to_nchw, to_nhwc
+from ..ops.image_ops import resize_bilinear, to_nchw, to_nhwc
+from .decoders import DepthDecoder, SegDecoder
 from .heads import LidarCenterNetHead, bias_init_with_prob
-from .layers import BatchNorm2d, Conv2d, LayerNorm, Linear
+from .layers import BatchNorm1d, BatchNorm2d, Conv2d, LayerNorm, Linear
+from .point_pillar import PointPillarNet
 from .transfuser import TransfuserBackbone
 from .waypoint_gru import make_join, waypoint_rollout
-
-
-class AuxDecoderParams(nn.Module):
-    """Parameters of a reference seg/depth decoder (transfuser.py:214-281),
-    held so reference checkpoints load; its forward is still to be ported
-    with training."""
-
-    def __init__(self, cin: int, c1: int, c2: int, c3: int, cout: int):
-        super().__init__()
-        self.deconv1 = nn.Sequential(Conv2d(cin, c1, 3, 1, 1), nn.ReLU(),
-                                     Conv2d(c1, c2, 3, 1, 1), nn.ReLU())
-        self.deconv2 = nn.Sequential(Conv2d(c2, c3, 3, 1, 1), nn.ReLU(),
-                                     Conv2d(c3, c3, 3, 1, 1), nn.ReLU())
-        self.deconv3 = nn.Sequential(Conv2d(c3, c3, 3, 1, 1), nn.ReLU(),
-                                     Conv2d(c3, cout, 3, 1, 1))
 
 
 class LidarCenterNet(nn.Module):
@@ -57,19 +45,21 @@ class LidarCenterNet(nn.Module):
             raise NotImplementedError(
                 f"backbone '{mcfg.backbone}' is not ported yet; only "
                 "transFuser is (ROADMAP.md queue 1: the other families)")
-        if mcfg.point_pillars.use_point_pillars:
-            raise NotImplementedError(
-                "PointPillars is not ported yet (ROADMAP.md queue 2)")
         self.config = config
         self.dtype = dtype
-        lidar_ch = 2 * mcfg.lidar_seq_len + int(mcfg.use_target_point_image)
+        pp = mcfg.point_pillars
+        lidar_ch = (pp.num_features[-1] if pp.use_point_pillars
+                    else 2 * mcfg.lidar_seq_len)
+        lidar_ch += int(mcfg.use_target_point_image)
         self._model = TransfuserBackbone(config, lidar_ch)
         feats = mcfg.perception_output_features
         if mcfg.multitask:
             deconv = (mcfg.deconv_channel_num_1, mcfg.deconv_channel_num_2,
                       mcfg.deconv_channel_num_3)
-            self.seg_decoder = AuxDecoderParams(feats, *deconv, mcfg.num_class)
-            self.depth_decoder = AuxDecoderParams(feats, *deconv, 1)
+            scales = (mcfg.deconv_scale_factor_1, mcfg.deconv_scale_factor_2)
+            self.seg_decoder = SegDecoder(feats, *deconv, mcfg.num_class,
+                                          *scales)
+            self.depth_decoder = DepthDecoder(feats, *deconv, *scales)
         ch = mcfg.centernet.channel
         bev_ch = config.bev.bev_features_channels
         self.pred_bev = nn.Sequential(
@@ -81,6 +71,8 @@ class LidarCenterNet(nn.Module):
         self.decoder = nn.GRUCell(4 if mcfg.gru_concat_target_point else 2,
                                   mcfg.gru_hidden_size)
         self.output = Linear(mcfg.gru_hidden_size, 3)
+        if pp.use_point_pillars:
+            self.point_pillar_net = PointPillarNet(pp)
         gen = torch.Generator().manual_seed(seed)
         init_like_flax(self, gen)
         self.eval()
@@ -90,24 +82,35 @@ class LidarCenterNet(nn.Module):
                 target_point: torch.Tensor,
                 target_point_image: Optional[torch.Tensor] = None,
                 velocity: Optional[torch.Tensor] = None,
-                compute_aux: bool = False) -> Dict[str, torch.Tensor]:
-        """rgb (B,H,W,3) in [0,255]; lidar_bev (B,H,W,2) histogram;
-        target_point (B,2); target_point_image (B,H,W,1); velocity (B,).
-        Returns pred_wp (B,pred_len,2) and the seven NHWC head maps
-        (``head_*``), all at-least-fp32."""
-        if compute_aux:
-            raise NotImplementedError(
-                "compute_aux=True (the training-only BEV/seg/depth maps) is "
-                "still to be ported (ROADMAP.md queue 1: training)")
+                num_points: Optional[torch.Tensor] = None,
+                compute_aux: bool = False,
+                gen: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """rgb (B,H,W,3) in [0,255]; lidar_bev (B,H,W,2) histogram, or
+        under PointPillars the padded raw cloud (B,N,4) with its counts
+        ``num_points`` (B,); target_point (B,2); target_point_image
+        (B,H,W,1); velocity (B,). Returns pred_wp (B,pred_len,2) and the
+        seven NHWC head maps (``head_*``), all at-least-fp32; with
+        ``compute_aux`` also pred_bev (B,bev_h,bev_w,classes),
+        pred_semantic (B,H,W,num_class) and pred_depth (B,H,W), in the
+        compute dtype. ``gen`` draws the GPT's dropout masks in training."""
         cfg = self.config
         dt = self.dtype
-        lidar = to_nchw(lidar_bev).to(dt)
+        if cfg.model.point_pillars.use_point_pillars:
+            if num_points is None:
+                raise ValueError("PointPillars needs num_points")
+            canvas = self.point_pillar_net(lidar_bev, num_points, dt)
+            # rot90(k=-1) over H, W: the voxelization's orientation
+            # (model.py:690)
+            lidar = to_nchw(torch.rot90(canvas, k=-1, dims=(1, 2)))
+        else:
+            lidar = to_nchw(lidar_bev).to(dt)
         if cfg.model.use_target_point_image:
             if target_point_image is None:
                 raise ValueError("config uses the target-point image")
             lidar = torch.cat([lidar, to_nchw(target_point_image).to(dt)], 1)
-        pyramid, _image_grid, fused = self._model(
-            to_nchw(rgb).to(dt), lidar, velocity)
+        pyramid, image_grid, fused = self._model(
+            to_nchw(rgb).to(dt), lidar, velocity, gen)
         pred_wp = waypoint_rollout(
             self.join, self.decoder, self.output, fused, target_point,
             cfg.model.pred_len, cfg.model.gru_concat_target_point,
@@ -115,17 +118,34 @@ class LidarCenterNet(nn.Module):
         out = {"pred_wp": pred_wp}
         for name, v in self.head(pyramid[0]).items():
             out[f"head_{name}"] = to_nhwc(v)
+        if compute_aux:
+            # model.py:760 resizes with align_corners=True
+            out["pred_bev"] = resize_bilinear(
+                to_nhwc(self.pred_bev(pyramid[0])),
+                (cfg.bev.bev_resolution_height, cfg.bev.bev_resolution_width),
+                align_corners=True)
+            if cfg.model.multitask:
+                out["pred_semantic"] = to_nhwc(self.seg_decoder(image_grid))
+                out["pred_depth"] = self.depth_decoder(image_grid)
         return out
 
     @torch.no_grad()
     def forward_ego(self, rgb: torch.Tensor, lidar_bev: torch.Tensor,
                     target_point: torch.Tensor,
                     target_point_image: Optional[torch.Tensor] = None,
-                    velocity: Optional[torch.Tensor] = None):
+                    velocity: Optional[torch.Tensor] = None,
+                    num_points: Optional[torch.Tensor] = None):
         """Inference path (model.py:685-731): waypoints + decoded top-k
-        boxes. Returns (pred_wp (B,4,2), boxes (B,k,8), labels (B,k));
-        confidence filtering is left to the host-side agent."""
-        out = self(rgb, lidar_bev, target_point, target_point_image, velocity)
+        boxes, in eval mode whatever the module's mode. Returns (pred_wp
+        (B,4,2), boxes (B,k,8), labels (B,k)); confidence filtering is
+        left to the host-side agent."""
+        was_training = self.training
+        self.eval()
+        try:
+            out = self(rgb, lidar_bev, target_point, target_point_image,
+                       velocity, num_points)
+        finally:
+            self.train(was_training)
         cnc = self.config.model.centernet
         decoded = cn.decode_heatmap(
             out["head_heatmap"], out["head_wh"], out["head_offset"],
@@ -161,7 +181,7 @@ def init_like_flax(model: LidarCenterNet, gen: torch.Generator) -> None:
             lecun(m.weight_hh)
             nn.init.zeros_(m.bias_ih)
             nn.init.zeros_(m.bias_hh)
-        elif isinstance(m, (BatchNorm2d, LayerNorm)):
+        elif isinstance(m, (BatchNorm1d, BatchNorm2d, LayerNorm)):
             m.reset_parameters()
     for branch in ("wh", "offset"):
         for conv in getattr(model.head, f"{branch}_head")[::2]:

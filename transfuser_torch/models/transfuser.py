@@ -49,7 +49,8 @@ class TransfuserBackbone(nn.Module):
         for i in range(4):
             self.add_module(f"transformer{i + 1}", GPTFusion(
                 n_embd=dims[i], n_head=g.n_head, n_layer=g.n_layer,
-                block_exp=g.block_exp,
+                block_exp=g.block_exp, embd_pdrop=g.embd_pdrop,
+                attn_pdrop=g.attn_pdrop, resid_pdrop=g.resid_pdrop,
                 img_anchors=(g.img_vert_anchors, g.img_horz_anchors),
                 lidar_anchors=(g.lidar_vert_anchors, g.lidar_horz_anchors),
                 use_velocity=mcfg.use_velocity,
@@ -66,9 +67,10 @@ class TransfuserBackbone(nn.Module):
             feats, config.bev.bev_features_channels)
 
     def forward(self, image: torch.Tensor, lidar_bev: torch.Tensor,
-                velocity: Optional[torch.Tensor] = None):
+                velocity: Optional[torch.Tensor] = None,
+                gen: Optional[torch.Generator] = None):
         """image (B,3,H,W) in [0,255], lidar_bev (B,C,H,W), both in the
-        compute dtype."""
+        compute dtype; ``gen`` draws the GPT's dropout masks in training."""
         g = self.config.model.gpt
         img_anchors = (g.img_vert_anchors, g.img_horz_anchors)
         lidar_anchors = (g.lidar_vert_anchors, g.lidar_horz_anchors)
@@ -83,7 +85,7 @@ class TransfuserBackbone(nn.Module):
             img_out, lid_out = getattr(self, f"transformer{i + 1}")(
                 to_nhwc(adaptive_avg_pool_nchw(x_img, img_anchors)),
                 to_nhwc(adaptive_avg_pool_nchw(x_lid, lidar_anchors)),
-                velocity)
+                velocity, gen)
             x_img = x_img + resize_bilinear_nchw(to_nchw(img_out),
                                                  x_img.shape[2:])
             x_lid = x_lid + resize_bilinear_nchw(to_nchw(lid_out),

@@ -11,8 +11,12 @@ kernel against.
 
 Both follow the Pallas kernel, not the JAX package's einsum fallback: the
 probabilities P stay fp32 through P.V (the fallback casts P to the input
-dtype first). Forward only: the Pallas kernel has no VJP either, and
-training takes the einsum path.
+dtype first). Forward only: the Pallas kernel has no VJP either. On the
+CPU the plain version is differentiable; on the card the wrapper raises
+when autograd would need a gradient through it (grad mode on and an
+input that requires grad), rather than hand back an output with no
+``grad_fn``. Training with attention dropout takes the GPT's explicit
+probabilities instead (models/gpt.py).
 """
 
 from __future__ import annotations
@@ -77,6 +81,11 @@ def attention(q: torch.Tensor, k: torch.Tensor,
         return reference_attention(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"attention runs on CUDA or CPU, not {q.device}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "the attention kernel is forward only (the Pallas kernel has no "
+            "VJP either): call it under torch.no_grad(), or train with "
+            "attn_pdrop > 0, which takes the explicit-probabilities branch")
     _check(q, k, v)
     lib = _bind(kernels.load("attention"))
     b, t, h, d = q.shape

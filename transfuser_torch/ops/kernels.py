@@ -36,6 +36,11 @@ KERNELS: Dict[str, Dict[str, str]] = {
         "source": "transfuser_torch/csrc/attention.cu",
         "replaces": "transfuser_tpu/ops/attention.py:61",
     },
+    "scatter_max": {
+        "route": "cuda",
+        "source": "transfuser_torch/csrc/scatter_max.cu",
+        "replaces": "experiments/pallas_scatter_max.py:64",
+    },
 }
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}

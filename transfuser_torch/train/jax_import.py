@@ -12,6 +12,16 @@ Conventions: conv kernels HWIO -> OIHW; dense kernels (in, out) ->
 ``weight_hh`` with separate biases; BatchNorm ``scale/bias/mean/var`` ->
 ``weight/bias/running_mean/running_var`` (+ ``num_batches_tracked``).
 
+PointPillars: the JAX ``point_pillar_net/DynamicPointNet_0/{fc,bn}{i}``
+map to ``point_pillar_net.point_net.net.{3i,3i+1}``, the names of LAV's
+``DynamicPointNet`` (Linear, BatchNorm1d, ReLU in an ``nn.Sequential``)
+that the reference's ``point_pillar_net`` wraps. Those names are assumed
+from LAV's source: no reference checkpoint with pillars is at hand, and
+the JAX package's own converter has no pillar mapping.
+
+The map is linear (transposes only), so it also carries a JAX gradient
+tree into the port's names.
+
 ``load_reference_checkpoint`` reads a reference ``model_*.pth``.
 """
 
@@ -54,13 +64,26 @@ def _put_dense(out: StateDict, key: str, p: Mapping) -> None:
         out[f"{key}.bias"] = _t(p["bias"])
 
 
+def _put_bn(out: StateDict, key: str, p: Mapping, s: Mapping) -> None:
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+    out[f"{key}.running_mean"] = _t(s["mean"])
+    out[f"{key}.running_var"] = _t(s["var"])
+    out[f"{key}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+
+
 def _put_convbn(out: StateDict, key: str, p: Mapping, s: Mapping) -> None:
     out[f"{key}.conv.weight"] = _conv(p["Conv_0"]["kernel"])
-    out[f"{key}.bn.weight"] = _t(p["BatchNorm_0"]["scale"])
-    out[f"{key}.bn.bias"] = _t(p["BatchNorm_0"]["bias"])
-    out[f"{key}.bn.running_mean"] = _t(s["BatchNorm_0"]["mean"])
-    out[f"{key}.bn.running_var"] = _t(s["BatchNorm_0"]["var"])
-    out[f"{key}.bn.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    _put_bn(out, f"{key}.bn", p["BatchNorm_0"], s["BatchNorm_0"])
+
+
+def _point_net(out: StateDict, p: Mapping, s: Mapping) -> None:
+    p, s = p["DynamicPointNet_0"], s["DynamicPointNet_0"]
+    n_layer = sum(1 for k in p if k.startswith("fc"))
+    for i in range(n_layer):
+        key = "point_pillar_net.point_net.net"
+        _put_dense(out, f"{key}.{3 * i}", p[f"fc{i}"])
+        _put_bn(out, f"{key}.{3 * i + 1}", p[f"bn{i}"], s[f"bn{i}"])
 
 
 def _regnety(out: StateDict, prefix: str, p: Mapping, s: Mapping) -> None:
@@ -150,6 +173,9 @@ def state_dict_from_jax(variables: Mapping[str, Any],
     out["decoder.weight_hh"] = _dense(gru["cell"]["weight_hh"]["kernel"])
     out["decoder.bias_hh"] = _t(gru["cell"]["weight_hh"]["bias"])
     _put_dense(out, "output", gru["output"])
+    if "point_pillar_net" in params:
+        _point_net(out, params["point_pillar_net"],
+                   stats["point_pillar_net"])
     return out
 
 
