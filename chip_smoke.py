@@ -6,11 +6,17 @@
 Phases, one JSON line each:
   env          the card (nvidia-smi), torch / CUDA versions, TF32 flags
   build        nvcc builds every kernel under transfuser_torch/csrc, one
-               process per source, all started together
+               process per source, all started together (ptxas register
+               and spill lines printed)
+  launch_floor the device time of an empty kernel built the same way
   kernels      each kernel against its plain PyTorch version at the shapes
                the main path gives it, with the kernel's, the plain
                version's and (as a yardstick only) one PyTorch library
-               call's median times, and the card's lower bound: attention
+               call's median times (CUDA events, `ms`), the kernel's and
+               the library call's device time (torch.profiler,
+               `device_ms`, `library_device_ms`), the wrapper's host time
+               per call (`host_ms`), the scatter-max's device launches per
+               call, and the card's lower bound: attention
                in bf16 and fp32 (tolerances below), the pillar scatter-max
                exactly (max abs error 0) and its backward against a plain
                tie-splitting version (rtol 1e-6); and the attention wrapper
@@ -45,10 +51,10 @@ and last {"ok": true, "device": {...}}.
 adds two ``profile`` phases: torch.profiler over a few bf16 flagship
 forwards (after forward_ego) and over a few pillar train steps (after the
 timed steps, outside the launch count), giving device kernel time per
-call, the device's idle share of the wall time, kernels launched per
-call and the top kernels. Any failed check raises: the
-script exits non-zero and prints no result. It needs a CUDA card and the
-rest of the repository beside it.
+call (and attention's share of it), the device's idle share of the
+wall time, kernels launched per call and the top kernels. Any failed
+check raises: the script exits non-zero and prints no result. It needs a
+CUDA card and the rest of the repository beside it.
 """
 
 from __future__ import annotations
@@ -120,6 +126,62 @@ def cuda_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_time(fn, reps: int = 50) -> tuple:
+    """torch.profiler over `reps` warm calls: the device time of all the
+    work they launched (kernels and memsets), per call, and the device
+    activities per call. Host cost between launches is left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        raise AssertionError("the profiler recorded no device work")
+    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps,
+            len(events) / reps)
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host time per call: `reps` calls enqueued back to back, with no
+    synchronisation inside the timed loop."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    per_call = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return per_call
+
+
+def phase_launch_floor():
+    """The device time of an empty kernel built by kernels.build: the floor
+    under any launch, which a sub-microsecond bound cannot show."""
+    import ctypes
+
+    from transfuser_torch.ops import kernels
+
+    fn = kernels.function("launch_floor", "tf_empty_kernel",
+                          [ctypes.c_void_p])
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def run():
+        err = kernels.call(fn, dev)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
+
+    floor_ms, _ = device_time(run, reps=200)
+    emit("launch_floor", launch_floor_ms=floor_ms, host_ms=host_ms(run))
+    return floor_ms
+
+
 def attention_bound_ms(shape, dtype) -> tuple:
     b, t, h, d = shape
     nbytes = 4 * b * t * h * d * torch.tensor([], dtype=dtype).element_size()
@@ -177,12 +239,17 @@ def phase_scatter_max(gen):
         if not torch.equal(got, want):
             raise AssertionError(f"scatter-max {name}: differs from the "
                                  f"plain version, max abs err {err}")
+        kernel = lambda: pillars.segment_max(vals, ids, s)  # noqa: E731
+        dev_ms, per_call = device_time(kernel)
         row = dict(case=name, batch=batch, points=n, channels=c,
                    segments=seg, max_abs_err=err,
-                   ms=cuda_ms(lambda: pillars.segment_max(vals, ids, s)),
+                   ms=cuda_ms(kernel), device_ms=dev_ms,
+                   cuda_launches_per_call=per_call, host_ms=host_ms(kernel),
                    plain_ms=cuda_ms(
                        lambda: pillars.reference_segment_max(vals, ids, s)),
                    library_ms=cuda_ms(lambda: library(vals, ids, s)),
+                   library_device_ms=device_time(
+                       lambda: library(vals, ids, s))[0],
                    bound_ms=scatter_bound_ms(batch, n, c, seg),
                    bound_by="bytes")
         if name in ("pillar_b12", "collisions"):
@@ -202,8 +269,10 @@ def phase_scatter_max(gen):
         rows.append(row)
     emit("kernels", kernels=["scatter_max"], scatter_max=rows)
     line = next(r for r in rows if r["case"] == SCATTER_LINE_CASE)
-    return {k: line[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                 "bound_by", "max_abs_err")}
+    return {k: line[k] for k in (
+        "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
+        "cuda_launches_per_call")}
 
 
 def check_attention_refuses_grad(gen):
@@ -247,14 +316,18 @@ def phase_kernels():
             plain64 = float((want.double() - exact).abs().max())
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             bound, bound_by = attention_bound_ms(shape, dtype)
+            kernel = lambda: attention(q, k, v)  # noqa: E731
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt)
             rows.append(dict(
                 shape=list(shape), dtype=str(dtype).split(".")[-1],
                 max_abs_err=err, tol=tol, max_abs_err_vs_fp64=err64,
                 plain_max_abs_err_vs_fp64=plain64,
-                ms=cuda_ms(lambda: attention(q, k, v)),
+                ms=cuda_ms(kernel), device_ms=device_time(kernel)[0],
+                host_ms=host_ms(kernel),
                 plain_ms=cuda_ms(lambda: reference_attention(q, k, v)),
-                library_ms=cuda_ms(
-                    lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                library_ms=cuda_ms(library),
+                library_device_ms=device_time(library)[0],
                 bound_ms=bound, bound_by=bound_by,
                 main_path=shape in ATTN_MAIN_SHAPES))
     emit("kernels", kernels=["attention"], attention=rows)
@@ -262,7 +335,8 @@ def phase_kernels():
     # 4 times, once per GPT layer), bf16, one launch of each
     main = [r for r in rows if r["main_path"] and r["dtype"] == "bfloat16"]
     summary = {key: sum(r[key] for r in main)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+               for key in ("ms", "device_ms", "host_ms", "plain_ms",
+                           "library_ms", "library_device_ms", "bound_ms")}
     by_ops = sum(r["bound_by"] == "operations" for r in main)
     summary["bound_by"] = "operations" if 2 * by_ops > len(main) \
         else "bytes"
@@ -388,8 +462,11 @@ def profile_calls(fn, n):
             by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
     device_ms = sum(t for t, _ in by_name.values()) / n
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    attn = [(t, c) for k, (t, c) in by_name.items() if "attention" in k]
     return dict(calls=n, wall_ms_per_call=wall_ms,
                 device_kernel_ms_per_call=device_ms,
+                attention_device_ms_per_call=sum(t for t, _ in attn) / n,
+                attention_launches_per_call=sum(c for _, c in attn) / n,
                 device_idle_share=1.0 - device_ms / wall_ms,
                 kernels_per_call=sum(c for _, c in by_name.values()) / n,
                 top_kernels=[{"name": k[:90], "ms_per_call": t / n,
@@ -676,8 +753,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = kernels.build()
     emit("build", seconds=time.perf_counter() - t0,
-         per_kernel={k: v["seconds"] for k, v in built.items()})
+         per_kernel={k: v["seconds"] for k, v in built.items()},
+         ptxas=[line.strip() for v in built.values()
+                for line in v["log"].splitlines()
+                if "Compiling entry" in line or "Used" in line or
+                "spill" in line])
 
+    floor_ms = phase_launch_floor()
     numbers = {"attention": phase_kernels()}
     gen = torch.Generator(device="cuda").manual_seed(1)
     numbers["scatter_max"] = phase_scatter_max(gen)
@@ -705,7 +787,8 @@ def main() -> int:
             raise AssertionError(f"kernel {name} never ran on the main path")
         line.append(dict(name=name, route=meta["route"],
                          source=meta["source"], replaces=meta["replaces"],
-                         launches=launches[name], **numbers[name]))
+                         launches=launches[name], **numbers[name],
+                         launch_floor_ms=floor_ms))
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

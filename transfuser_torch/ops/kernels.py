@@ -7,7 +7,12 @@ hash of its source, and loaded with ``ctypes``; PyTorch's headers are not
 involved, so a build takes seconds.
 
 ``launches`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one where it launches and nowhere else.
+adds one where it launches and nowhere else. ``function`` hands a wrapper
+the C entry point with its argument types bound once, at first use.
+
+``KERNELS`` lists the kernels of the port's paths. ``PROBES`` lists
+sources that are built the same way only to measure the card (an empty
+kernel for the launch floor); no path calls them.
 """
 
 from __future__ import annotations
@@ -20,14 +25,18 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
+# -Xptxas -v: the build log lists each kernel's registers, spills and
+# shared memory
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> what the kernel is and which TPU kernel it replaces
 KERNELS: Dict[str, Dict[str, str]] = {
@@ -43,8 +52,11 @@ KERNELS: Dict[str, Dict[str, str]] = {
     },
 }
 
+PROBES = ("launch_floor",)
+
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], Any] = {}
 
 
 def reset_launches() -> None:
@@ -74,11 +86,11 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every kernel in ``names`` (default: all) that is not built
-    yet, one ``nvcc`` process per source, all started together. Returns
-    {name: {"seconds": wall time, "log": compiler output}}; raises if any
-    build fails."""
-    names = list(KERNELS if names is None else names)
+    """Compile every source in ``names`` (default: the kernels and the
+    probes) that is not built yet, one ``nvcc`` process per source, all
+    started together. Returns {name: {"seconds": wall time, "log":
+    compiler output}}; raises if any build fails."""
+    names = [*KERNELS, *PROBES] if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -123,3 +135,28 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _libs[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence[Any]) -> Any:
+    """The C function ``symbol`` of kernel ``name``, returning an int (a
+    cudaError_t), with its argument types set once."""
+    fn = _functions.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[(name, symbol)] = fn
+    return fn
+
+
+def call(fn: Any, device: torch.device, *args) -> int:
+    """``fn(*args, stream)`` on ``device``'s current stream, with the
+    device made current only when it is not already. The raw stream
+    handle comes from the call PyTorch's own generated code uses: building
+    a ``torch.cuda.Stream`` object per call costs the host about as much
+    as the bf16 attention kernel costs the card."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

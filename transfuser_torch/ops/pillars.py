@@ -32,6 +32,8 @@ import torch
 from . import kernels
 
 NEG_INF = -1e30
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_longlong, ctypes.c_void_p]
 
 
 def pillar_cells(points: torch.Tensor, num_points: torch.Tensor,
@@ -80,16 +82,6 @@ def reference_segment_max(values: torch.Tensor, segment_ids: torch.Tensor,
     return torch.where(out <= NEG_INF / 2, torch.zeros_like(out), out)
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    fn = lib.tf_scatter_max_forward
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _check(values: torch.Tensor, segment_ids: torch.Tensor,
            num_segments: int) -> None:
     if values.dim() != 2 or segment_ids.shape != values.shape[:1]:
@@ -117,15 +109,15 @@ def _segment_max_forward(values: torch.Tensor, segment_ids: torch.Tensor,
         raise ValueError(f"segment_max runs on CUDA or CPU, not "
                          f"{values.device}")
     _check(values, segment_ids, num_segments)
-    lib = _bind(kernels.load("scatter_max"))
+    fn = kernels.function("scatter_max", "tf_scatter_max_forward", _ARGTYPES)
     n, c = values.shape
-    out = torch.empty((num_segments, c), dtype=values.dtype,
-                      device=values.device)
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        err = lib.tf_scatter_max_forward(
-            values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-            n, c, num_segments, stream)
+    # the canvas, then the kernel's touched-cell bitmap (one bit per cell)
+    buf = torch.empty(num_segments * c + (num_segments + 31) // 32,
+                      dtype=values.dtype, device=values.device)
+    out = buf[:num_segments * c].view(num_segments, c)
+    args = (values.data_ptr(), segment_ids.data_ptr(), buf.data_ptr(), n, c,
+            num_segments)
+    err = kernels.call(fn, values.device, *args)
     if err != 0:
         raise RuntimeError(f"scatter-max kernel launch failed: CUDA error "
                            f"{err} at N={n}, C={c}, S={num_segments}")
