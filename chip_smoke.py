@@ -40,9 +40,28 @@ Phases, one JSON line each:
                a fp32 train-mode forward + loss dict (dropout 0, batch 2)
                on the card vs the same in fp64 on the CPU, rtol 1e-3 /
                atol 1e-4 (the CPU's fp32 error printed beside)
+  cli          the training CLI (transfuser_torch.train.cli) on a
+               CARLA-layout dataset it writes first at the DataAgent's
+               sizes (57 + 21 frames: 48 train and 12 validation samples),
+               02_05_withheld, 2 epochs at batch 12: (a) the flagship
+               through the echo cache, (b) PointPillars through the device
+               cache, both in process; (b) resumed from its epoch-2
+               checkpoint for a third epoch in a fresh process on the plain
+               loader; the agent on (a)'s export for 4 compute frames.
+               Checks: finite history with val_ade, the checkpoint
+               directories and exports exist, each export equals its
+               epoch's checkpoint bit for bit, launches per train step
+               (attention 0, scatter-max 1 under pillars) and per eval step
+               (attention 16, scatter-max 1 under pillars), finite agent
+               controls. Prints per run seconds, samples/s per epoch and
+               peak memory, the checkpoint save times, the device-cache
+               upload, the echo factor, the host decode ms per sample (one
+               epoch of the plain loader alone), and the PNG decode ms of a
+               160x960 strip with libpng-style adaptive row filters
 
-The main path's launches are counted in the agent, pillars_forward_ego
-and train phases (counts set to 0 just before each, read just after).
+The main path's launches are counted in the agent, pillars_forward_ego,
+train and cli phases (counts set to 0 just before each run, read just
+after).
 Then a line with every kernel's numbers, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
@@ -732,6 +751,292 @@ def phase_train(cfg, steps=10, profile=False):
     return launches
 
 
+def adaptive_png(img: np.ndarray) -> tuple:
+    """(H, W, 3) uint8 -> PNG bytes with a filter chosen per row as
+    libpng's adaptive filtering chooses (the least sum of the filtered
+    bytes read as signed), and the count of rows per filter type."""
+    import struct
+    import zlib
+
+    from transfuser_torch.data import png
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]                       # left
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]                             # up
+    cc = np.zeros_like(x)
+    cc[1:, c:] = x[:-1, :-c]                   # up-left
+    p = a + b - cc
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - cc)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, cc))
+    preds = [np.zeros_like(x), a, b, (a + b) >> 1, paeth]
+    rows = np.stack([(x - q) & 255 for q in preds])        # (5, H, W*C)
+    cost = np.minimum(rows, 256 - rows).sum(axis=2)        # (5, H)
+    kind = cost.argmin(axis=0)
+    raw = np.concatenate([kind[:, None], rows[kind, np.arange(h)]], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    blob = (b"\x89PNG\r\n\x1a\n" + png._chunk(b"IHDR", header) +
+            png._chunk(b"IDAT", zlib.compress(raw.astype(np.uint8)
+                                              .tobytes(), 6)) +
+            png._chunk(b"IEND", b""))
+    return blob, np.bincount(kind, minlength=5).tolist()
+
+
+def train_state_model(run_dir: str, epoch: int) -> dict:
+    from transfuser_torch.train import checkpoint
+
+    return torch.load(os.path.join(run_dir, str(epoch),
+                                   checkpoint.TRAIN_STATE),
+                      map_location="cpu", weights_only=True)["model"]
+
+
+def check_export(run_dir: str, epoch: int) -> None:
+    """model_<epoch>.msgpack holds, bit for bit, the model of the train
+    state checkpointed at <epoch>."""
+    from transfuser_torch.train import checkpoint
+    from transfuser_torch.train.jax_import import state_dict_from_jax
+
+    cfg = checkpoint.load_config_snapshot(run_dir)
+    exported = state_dict_from_jax(checkpoint.load_inference_weights(
+        os.path.join(run_dir, f"model_{epoch}.msgpack")), cfg)
+    saved = train_state_model(run_dir, epoch)
+    if exported.keys() != saved.keys():
+        raise AssertionError(f"{run_dir}: export and checkpoint {epoch} "
+                             "hold different tensors")
+    for k, v in saved.items():
+        if not torch.equal(exported[k], v):
+            raise AssertionError(f"{run_dir}: model_{epoch}.msgpack {k} "
+                                 f"differs from checkpoint {epoch}")
+
+
+def check_history(run_dir: str, epochs: list) -> list:
+    rows = json.load(open(os.path.join(run_dir, "history.json")))[
+        "per_epoch"]
+    if [r["epoch"] for r in rows] != epochs:
+        raise AssertionError(f"{run_dir}: history epochs {rows}")
+    for r in rows:
+        if "val_ade" not in r or not np.isfinite(
+                [v for k, v in r.items() if k != "epoch"]).all():
+            raise AssertionError(f"{run_dir}: history row {r}")
+    return rows
+
+
+def phase_cli():
+    """The training CLI on a CARLA-layout dataset written at full size:
+    two runs in process (the flagship through the echo cache, PointPillars
+    through the device cache), a resume of the second in a fresh process
+    on the plain loader, and the agent on the first run's export."""
+    import transfuser_torch.train.trainer as trainer_mod
+    from transfuser_torch.agents.hybrid_agent import HybridAgent
+    from transfuser_torch.config import GlobalConfig
+    from transfuser_torch.data import png
+    from transfuser_torch.data.dataset import CarlaDataset
+    from transfuser_torch.data.loader import PrefetchLoader, pinned_put
+    from transfuser_torch.data.synthetic import write_route
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.train import cli
+    from transfuser_torch.train.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    out = {}
+    # launches per call of the trainer's train and eval steps
+    per_step = {"train": [], "eval": []}
+    made = (trainer_mod.make_train_step, trainer_mod.make_eval_step)
+
+    def counting(kind, make):
+        def factory(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def counted(batch):
+                before = dict(kernels.launches)
+                result = step(batch)
+                per_step[kind].append({k: kernels.launches[k] - before[k]
+                                       for k in before})
+                return result
+            return counted
+        return factory
+
+    trainer_mod.make_train_step = counting("train", made[0])
+    trainer_mod.make_eval_step = counting("eval", made[1])
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        root, logs = os.path.join(tmp, "data"), os.path.join(tmp, "log")
+        t0 = time.perf_counter()
+        # 57 frames: 48 train samples (4 steps at batch 12); 21 frames:
+        # 12 validation samples (Town02 is withheld)
+        write_route(os.path.join(root, "Town01_Short", "Town01_route0"), 57,
+                    seed=10)
+        write_route(os.path.join(root, "Town01_Short", "Town02_route0"), 21,
+                    seed=11)
+        out["dataset_write_s"] = time.perf_counter() - t0
+        common = ["--root_dir", root, "--logdir", logs, "--setting",
+                  "02_05_withheld", "--batch_size", "12", "--val_every",
+                  "1", "--num_workers", "4"]
+        runs = {"a": ["--echo_window", "24"],
+                "b": ["--use_point_pillars", "1", "--device_cache", "1"]}
+        for name, extra in runs.items():
+            pillars = name == "b"
+            per_step["train"].clear()
+            per_step["eval"].clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()   # the main path's run starts here
+            t0 = time.perf_counter()
+            summary = cli.main(common + ["--id", name, "--epochs", "2"] +
+                               extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            for k, v in kernels.launches.items():  # ... and ends here
+                launches[k] += v
+            run_dir = os.path.join(logs, name)
+            want = {"train": {"attention": 0, "scatter_max": int(pillars)},
+                    "eval": {"attention": 16, "scatter_max": int(pillars)}}
+            counts = {"train": len(per_step["train"]),
+                      "eval": len(per_step["eval"])}
+            if counts != {"train": 8, "eval": 2}:
+                raise AssertionError(f"run {name}: steps {counts}, expected "
+                                     "8 train and 2 eval")
+            for kind in ("train", "eval"):
+                for got in per_step[kind]:
+                    if got != want[kind]:
+                        raise AssertionError(f"run {name}: {kind} step "
+                                             f"launches {got} != "
+                                             f"{want[kind]}")
+            rows = check_history(run_dir, [0, 1])
+            e = summary["export_epoch"]
+            for path in ("1", "2", f"model_{e}.msgpack",
+                         "best/model_best.msgpack", "best/EXPORT.json"):
+                if not os.path.exists(os.path.join(run_dir, path)):
+                    raise AssertionError(f"run {name}: no {path}")
+            check_export(run_dir, e)
+            out[name] = dict(
+                argv=extra, seconds=seconds,
+                samples_per_s=[r["samples_per_sec"] for r in rows],
+                loss_total=[r["loss_total"] for r in rows],
+                val_ade=[r["val_ade"] for r in rows],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                export_epoch=e, launches=dict(kernels.launches),
+                launches_per_train_step=want["train"],
+                launches_per_eval_step=want["eval"],
+                checkpoint_saves=summary["checkpoint_saves"],
+                **{k: summary[k] for k in ("echo_factor", "device_cache")
+                   if k in summary})
+            if name == "a":  # the agent needs the export, not the states
+                for path in ("1", "2"):
+                    shutil.rmtree(os.path.join(run_dir, path))
+            torch.cuda.empty_cache()
+        dc = out["b"]["device_cache"]
+        out["device_cache_upload_mb"] = dc["upload_bytes"] / 1e6
+        out["device_cache_upload_s"] = dc["upload_s"]
+
+        # resume run b in a fresh process, on the plain PrefetchLoader
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "transfuser_torch.train.cli", *common,
+             "--id", "b", "--use_point_pillars", "1", "--load_epoch", "2",
+             "--start_epoch", "2", "--epochs", "3"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"resume failed:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        run_b = os.path.join(logs, "b")
+        rows = check_history(run_b, [2])
+        check_export(run_b, 3)
+        step = torch.load(os.path.join(run_b, "3", "train_state.pt"),
+                          map_location="cpu", weights_only=True)["step"]
+        if step != 12:
+            raise AssertionError(f"resumed run ended at step {step}, "
+                                 "expected 8 + 4")
+        out["resume"] = dict(seconds=time.perf_counter() - t0,
+                             samples_per_s=rows[0]["samples_per_sec"],
+                             loss_total=rows[0]["loss_total"],
+                             val_ade=rows[0]["val_ade"], step=step)
+
+        # the agent on run a's export: 4 compute frames
+        cfg = GlobalConfig()
+        t0 = time.perf_counter()
+        agent = HybridAgent(os.path.join(logs, "a"), device="cuda")
+        setup_s = time.perf_counter() - t0
+        if agent.config.model.gpt.reference_view_unpack:
+            raise AssertionError("a native export turned on the reference "
+                                 "view-unpack quirk")
+        plan = [({"lat": x / 111324.60662786, "lon": 0.0}, 4)
+                for x in range(0, 200, 10)]
+        agent.set_global_plan(plan, [(float(x), 0.0)
+                                     for x in range(0, 200, 10)])
+        frames = list(synthetic_sensor_frames(cfg, 8, seed=3))
+        kernels.reset_launches()       # the main path's run starts here
+        controls = [agent.run_step(f, 0.05 * i) for i, f in
+                    enumerate(frames)]
+        torch.cuda.synchronize()
+        for k, v in kernels.launches.items():  # ... and ends here
+            launches[k] += v
+        controls = [[c.steer, c.throttle, c.brake] for c in controls]
+        if not np.isfinite(controls).all():
+            raise AssertionError(f"non-finite controls {controls}")
+        if kernels.launches["attention"] != 16 * 4:
+            raise AssertionError(f"agent on the export: "
+                                 f"{kernels.launches} launches")
+        out["agent"] = dict(setup_s=setup_s, compute_frames=4,
+                            launches=dict(kernels.launches),
+                            last_control=controls[-1])
+        del agent
+
+        # host decode: one epoch of the plain loader alone (flagship,
+        # packed, augmented), 4 worker threads, and one sample at a time
+        cfg = GlobalConfig(root_dir=root, setting="02_05_withheld")
+        train_set = CarlaDataset(cfg.resolve_splits()[0], cfg, packed=True)
+        loader = PrefetchLoader(train_set, 12, num_workers=4, seed=0,
+                                device_put=pinned_put("cuda"))
+        timer = StepTimer()
+        t0 = time.perf_counter()
+        it = iter(loader)
+        for _ in range(len(loader)):
+            with timer.stage("batch"):
+                next(it)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        serial = StepTimer()
+        for i in range(6):
+            with serial.stage("sample"):
+                train_set[i]
+        out["host_decode"] = dict(
+            samples=len(train_set), workers=4, epoch_s=epoch_s,
+            ms_per_sample=epoch_s * 1e3 / len(train_set),
+            batch_wait=timer.summary(),
+            serial_ms_per_sample=serial.summary()["sample_mean_ms"])
+
+        # PNG decode of one 160x960 RGB strip with adaptive row filters
+        rng = np.random.default_rng(12)
+        strip = np.clip(128 + np.cumsum(rng.normal(0, 3, (160, 960, 3)),
+                                        axis=1), 0, 255).astype(np.uint8)
+        blob, filters = adaptive_png(strip)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = png.decode(blob)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got, strip):
+            raise AssertionError("adaptive-filter PNG decoded wrong")
+        plain = png.encode(strip)
+        t0 = time.perf_counter()
+        png.decode(plain)
+        out["png_decode"] = dict(
+            shape=list(strip.shape), adaptive_ms=statistics.median(times),
+            rows_per_filter=filters,
+            filter_none_ms=(time.perf_counter() - t0) * 1e3)
+    finally:
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = made
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("cli", **out)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -776,7 +1081,8 @@ def main() -> int:
     launches = dict.fromkeys(kernels.KERNELS, 0)
     for phase in (lambda: phase_agent(cfg, state),
                   lambda: phase_pillars_forward_ego(pillar_config()),
-                  lambda: phase_train(pillar_config(), profile=profile)):
+                  lambda: phase_train(pillar_config(), profile=profile),
+                  phase_cli):
         for name, count in phase().items():
             launches[name] += count
         torch.cuda.empty_cache()

@@ -16,12 +16,17 @@ import jax.numpy as jnp
 from test_full_import import _parity_config
 from transfuser_tpu.agents.hybrid_agent import HybridAgent as JaxAgent
 from transfuser_tpu.models.lidar_centernet import LidarCenterNet as JaxModel
-from transfuser_tpu.train.checkpoint import save_config_snapshot
+from transfuser_tpu.train.checkpoint import (save_config_snapshot,
+                                             save_inference_weights)
 from transfuser_torch.agents.hybrid_agent import HybridAgent
-from transfuser_torch.train.jax_import import state_dict_from_jax
+from transfuser_torch.models import LidarCenterNet
+from transfuser_torch.train import checkpoint
+from transfuser_torch.train.jax_import import (state_dict_from_jax,
+                                               variables_from_state_dict)
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transfuser_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "transfuser_tpu",
+             "msgpack", "cv2", "PIL")
 
 # Both agents compute the model in bf16 (the JAX agent always does,
 # hybrid_agent.py:163), rounding at different places: waypoints (metres)
@@ -83,6 +88,10 @@ def test_port_agent_matches_jax_agent(tmp_path):
     ref = JaxAgent(model_dir)
     assert ours.model_count == ref.model_count == 1
     assert ours.config.model.gpt.reference_view_unpack
+    _drive_both(cfg, ours, ref)
+
+
+def _drive_both(cfg, ours, ref):
     plan, world = _plan()
     for agent in (ours, ref):
         agent.set_global_plan(plan, world)
@@ -105,18 +114,65 @@ def test_port_agent_matches_jax_agent(tmp_path):
     assert compared >= 1
 
 
+def _native_config():
+    import dataclasses
+
+    cfg = _parity_config()
+    gpt = dataclasses.replace(cfg.model.gpt, reference_view_unpack=False)
+    return cfg.replace(model=dataclasses.replace(cfg.model, gpt=gpt))
+
+
+def _native_member_dir(tmp_path, write):
+    """A model dir with natively trained weights (a port model at seeded
+    init) written by ``write`` (either package's save_inference_weights)."""
+    cfg = _native_config()
+    model_dir = str(tmp_path / "model")
+    save_config_snapshot(model_dir, cfg)
+    tm = LidarCenterNet(cfg, dtype=torch.float32, device="cpu", seed=2)
+    write(os.path.join(model_dir, "model_3.msgpack"),
+          variables_from_state_dict(tm.state_dict(), cfg))
+    return cfg, model_dir, tm
+
+
+def test_agent_loads_a_jax_written_member(tmp_path):
+    """A model_*.msgpack written by the JAX package loads bit for bit, and
+    the reference view-unpack quirk stays off for it."""
+    _, model_dir, tm = _native_member_dir(tmp_path, save_inference_weights)
+    ours = HybridAgent(model_dir, device="cpu")
+    assert ours.model_count == 1
+    assert not ours.config.model.gpt.reference_view_unpack
+    got = ours.members[0].state_dict()
+    for k, v in tm.state_dict().items():
+        assert torch.equal(got[k], v), k
+
+
+def test_jax_agent_drives_like_the_port_on_a_port_export(tmp_path):
+    """The JAX agent loads a member the port wrote, and both agents drive
+    alike on it."""
+    cfg, model_dir, _ = _native_member_dir(
+        tmp_path, checkpoint.save_inference_weights)
+    ours = HybridAgent(model_dir, device="cpu")
+    ref = JaxAgent(model_dir)
+    assert ours.model_count == ref.model_count == 1
+    assert not ours.config.model.gpt.reference_view_unpack
+    assert not ref.config.model.gpt.reference_view_unpack
+    _drive_both(cfg, ours, ref)
+
+
 def test_agent_refuses_what_is_not_ported(tmp_path):
     import dataclasses
 
-    from transfuser_torch.models import LidarCenterNet
-
-    cfg = _parity_config()
+    cfg = _native_config()
     model_dir = str(tmp_path / "model")
     save_config_snapshot(model_dir, cfg)
-    torch.save(LidarCenterNet(cfg, device="cpu").state_dict(),
-               os.path.join(model_dir, "model_0.pth"))
-    Path(model_dir, "model_1.msgpack").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="msgpack"):
+    tm = LidarCenterNet(cfg, device="cpu")
+    torch.save(tm.state_dict(), os.path.join(model_dir, "model_0.pth"))
+    checkpoint.save_inference_weights(
+        os.path.join(model_dir, "model_1.msgpack"),
+        variables_from_state_dict(tm.state_dict(), cfg))
+    # a reference .pth needs the view-unpack quirk, a native member must
+    # not have it: one ensemble cannot hold both (the JAX agent's rule)
+    with pytest.raises(ValueError, match="mixes reference .pth"):
         HybridAgent(model_dir, device="cpu")
     os.remove(os.path.join(model_dir, "model_1.msgpack"))
     ctrl = dataclasses.replace(cfg.controller, async_inference=True)

@@ -20,9 +20,10 @@ scalars), uploads it once through pinned memory, widens it on the device,
 runs every member's ``forward_ego`` in bf16 and brings the
 waypoints and boxes of all members back in one copy.
 
-transFuser members from reference ``.pth`` files only: natively trained
-``.msgpack`` members, ``pipelined_fetch`` and ``async_inference`` are
-still to be ported (ROADMAP.md queue 1) and raise.
+transFuser members from reference ``.pth`` files or natively trained
+``model_*.msgpack`` files (the JAX package's inference format, written by
+either package's training CLI). ``pipelined_fetch`` and
+``async_inference`` are still to be ported (ROADMAP.md queue 1) and raise.
 """
 
 from __future__ import annotations
@@ -48,17 +49,12 @@ from ..data.lidar_np import lidar_to_histogram
 from ..data.pack import LIDAR_HIST_MAX
 from ..models import LidarCenterNet
 from ..sim.types import VehicleControl
-from ..train.jax_import import load_reference_checkpoint
+from ..train.checkpoint import (CONFIG_SNAPSHOT, list_ensemble_weights,
+                                load_inference_weights)
+from ..train.jax_import import load_reference_checkpoint, state_dict_from_jax
 from .base import AutonomousAgent, Track
 
-CONFIG_SNAPSHOT = "config.json"
 _SCALARS = 16  # bytes at the head of the packed frame: tp x, tp y, speed
-
-
-def list_ensemble_weights(model_dir: str) -> List[str]:
-    """Every model_*.pth / model_*.msgpack in the directory is a member."""
-    return [os.path.join(model_dir, f) for f in sorted(os.listdir(model_dir))
-            if f.startswith("model_") and f.endswith((".msgpack", ".pth"))]
 
 
 class HybridAgent(AutonomousAgent):
@@ -82,13 +78,17 @@ class HybridAgent(AutonomousAgent):
             raise NotImplementedError(
                 "pipelined_fetch / async_inference are not ported yet "
                 "(ROADMAP.md queue 1); the port runs the synchronous frame")
-        if any(p.endswith(".msgpack") for p in weight_files):
-            raise NotImplementedError(
-                "flax-serialized .msgpack members are not ported yet "
-                "(ROADMAP.md queue 1); use reference .pth members")
-        if weight_files and not self.config.model.gpt.reference_view_unpack:
-            # reference torch checkpoints carry the GPT token-unpack view
-            # quirk (models/gpt.py)
+        n_pth = sum(p.endswith(".pth") for p in weight_files)
+        if n_pth and not self.config.model.gpt.reference_view_unpack:
+            # Reference torch checkpoints carry the GPT token-unpack view
+            # quirk (models/gpt.py); natively trained members do not. Flip
+            # it only when EVERY member needs it, as the JAX agent does.
+            if n_pth != len(weight_files):
+                raise ValueError(
+                    "ensemble mixes reference .pth members (which need "
+                    "the GPT view-unpack quirk) with natively trained "
+                    "members (which don't): split them into separate "
+                    f"model dirs ({path_to_conf_file})")
             gpt = dataclasses.replace(self.config.model.gpt,
                                       reference_view_unpack=True)
             self.config = self.config.replace(
@@ -99,9 +99,12 @@ class HybridAgent(AutonomousAgent):
         for i, path in enumerate(weight_files or [None]):
             model = LidarCenterNet(cfg, dtype=torch.bfloat16, device="cpu",
                                    seed=i)
-            if path is not None:
+            if path is not None and path.endswith(".pth"):
                 model.load_state_dict(load_reference_checkpoint(path, cfg),
                                       strict=True)
+            elif path is not None:
+                model.load_state_dict(state_dict_from_jax(
+                    load_inference_weights(path), cfg), strict=True)
             self.members.append(model.to(self.device))
         self.model_count = len(self.members)
         self._alloc_frame_buffers()

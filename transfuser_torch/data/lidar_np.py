@@ -1,8 +1,8 @@
-"""(Copy of transfuser_tpu/data/lidar_np.py: the numpy histogram path only.)
+"""(Copy of transfuser_tpu/data/lidar_np.py: the numpy paths only.)
 
-Host-side LiDAR BEV histogram.
+Host-side LiDAR preprocessing: ego-motion alignment + BEV histogram.
 
-Behavioral spec (reference data.py:445-470): grid 256x256 at 8 px/m over
+Behavioral spec (reference data.py:411-470): grid 256x256 at 8 px/m over
 x in [-16, 16], y in [-32, 0]; two height slices split at z = -2.3; counts
 clipped at 5 hits/cell and normalized; final rot90(k=-1).
 """
@@ -11,12 +11,41 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import geometry
+
 PIXELS_PER_METER = 8
 HIST_MAX_PER_PIXEL = 5
 X_METERS_MAX = 16.0
 Y_METERS_MAX = 32.0
 Z_SPLIT = -2.3
 GRID = 32 * PIXELS_PER_METER  # 256
+
+
+def align_lidar(lidar: np.ndarray, ego_matrix_from: np.ndarray,
+                ego_matrix_to: np.ndarray, degree: float = 0.0) -> np.ndarray:
+    """Transform points from frame of `ego_matrix_from` into the lidar frame
+    at `ego_matrix_to`, with optional rotation augmentation (data.py:411-443).
+
+    lidar: (N, 4) xyzi with the dataset's negated-y convention.
+    """
+    t_l2v = geometry.lidar_to_vehicle()
+    t_v2l = geometry.vehicle_to_lidar()
+    m0 = np.asarray(ego_matrix_from, dtype=np.float64)
+    m1 = np.asarray(ego_matrix_to, dtype=np.float64)
+    transform = t_v2l @ np.linalg.inv(m1) @ m0 @ t_l2v
+
+    rad = np.deg2rad(degree)
+    c, s = np.cos(rad), np.sin(rad)
+    aug = np.array([[c, s, 0, 0], [-s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    transform = aug @ transform
+
+    pts = lidar.astype(np.float64).copy()
+    pts[:, 3] = 1.0
+    pts[:, 1] *= -1.0  # dataset convention -> carla frame
+    out = (transform @ pts.T).T
+    out[:, 3] = lidar[:, 3]
+    out[:, 1] *= -1.0  # back to dataset convention
+    return out.astype(lidar.dtype) if lidar.dtype != np.float64 else out
 
 
 def lidar_to_histogram(lidar: np.ndarray, grid: int = GRID) -> np.ndarray:

@@ -1,9 +1,10 @@
-"""(Copy of transfuser_tpu/geometry.py: the parts the driving agent uses.)
+"""(Copy of transfuser_tpu/geometry.py: the parts the driving agent and the
+data reader use.)
 
-Shared geometry: BEV-image transform, convex IoU, bicycle model.
+Shared geometry: rig transforms, convex IoU, bicycle model.
 
 Pure numpy (host-side). Formulas match the reference exactly:
-  * lidar -> BEV-image transform: team_code_transfuser/utils.py:29-37
+  * lidar<->vehicle<->BEV-image transforms: team_code_transfuser/utils.py:3-37
   * convex polygon IoU for ensemble NMS: submission_agent.py:491-497
   * kinematic bicycle model (World-on-Rails constants):
     submission_agent.py:663-701 / autopilot.py:1152-1190
@@ -15,6 +16,31 @@ import numpy as np
 
 # --------------------------------------------------------------------------
 # Static rig transforms
+
+
+def virtual_lidar_to_vehicle() -> np.ndarray:
+    """Translation-only 'virtual lidar' frame (utils.py:3-9)."""
+    t = np.eye(4)
+    t[0, 3] = 1.3
+    t[2, 3] = 2.5
+    return t
+
+
+def vehicle_to_virtual_lidar() -> np.ndarray:
+    return np.linalg.inv(virtual_lidar_to_vehicle())
+
+
+def lidar_to_vehicle() -> np.ndarray:
+    """Rotated + translated physical lidar frame (utils.py:14-24)."""
+    t = np.eye(4)
+    t[:3, :3] = np.array([[0, 1, 0], [-1, 0, 0], [0, 0, 1]], dtype=np.float64)
+    t[0, 3] = 1.3
+    t[2, 3] = 2.5
+    return t
+
+
+def vehicle_to_lidar() -> np.ndarray:
+    return np.linalg.inv(lidar_to_vehicle())
 
 
 def lidar_to_bevimage() -> np.ndarray:

@@ -20,7 +20,10 @@ from LAV's source: no reference checkpoint with pillars is at hand, and
 the JAX package's own converter has no pillar mapping.
 
 The map is linear (transposes only), so it also carries a JAX gradient
-tree into the port's names.
+tree into the port's names. ``variables_from_state_dict`` is its inverse
+(port state dict -> the flax tree, the counterpart of
+``convert_lidar_centernet_statedict`` itself): the port's trained weights
+leave in the JAX package's layout, and port -> flax -> port is bit-exact.
 
 ``load_reference_checkpoint`` reads a reference ``model_*.pth``.
 """
@@ -228,3 +231,162 @@ def load_reference_checkpoint(path: str, config: GlobalConfig) -> StateDict:
             f"checkpoint GPT has {1 + max(blocks)} layers but "
             f"config.model.gpt.n_layer={config.model.gpt.n_layer}")
     return state
+
+
+# ------------------------------------------------ port state dict -> flax tree
+
+Tree = Dict[str, Any]
+
+
+def _a(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _get_conv(state: Mapping, key: str) -> Tree:
+    p = {"kernel": np.ascontiguousarray(
+        np.transpose(_a(state[f"{key}.weight"]), (2, 3, 1, 0)))}
+    if f"{key}.bias" in state:
+        p["bias"] = _a(state[f"{key}.bias"])
+    return p
+
+
+def _get_dense(state: Mapping, key: str) -> Tree:
+    p = {"kernel": np.ascontiguousarray(_a(state[f"{key}.weight"]).T)}
+    if f"{key}.bias" in state:
+        p["bias"] = _a(state[f"{key}.bias"])
+    return p
+
+
+def _get_bn(state: Mapping, key: str):
+    return ({"scale": _a(state[f"{key}.weight"]),
+             "bias": _a(state[f"{key}.bias"])},
+            {"mean": _a(state[f"{key}.running_mean"]),
+             "var": _a(state[f"{key}.running_var"])})
+
+
+def _get_convbn(state: Mapping, key: str):
+    p, s = _get_bn(state, f"{key}.bn")
+    return ({"Conv_0": {"kernel": _get_conv(state, f"{key}.conv")["kernel"]},
+             "BatchNorm_0": p}, {"BatchNorm_0": s})
+
+
+def _indices(state: Mapping, pattern: str) -> list:
+    rx = re.compile(pattern)
+    return sorted({int(m.group(1)) for k in state if (m := rx.match(k))})
+
+
+def _regnety_from(state: Mapping, prefix: str):
+    p, s = {}, {}
+    p["_stem"], s["_stem"] = _get_convbn(state, f"{prefix}stem")
+    for si in _indices(state, re.escape(prefix) + r"s(\d+)\."):
+        sname = f"_stages_{si - 1}"
+        p[sname], s[sname] = {}, {}
+        block_re = re.escape(f"{prefix}s{si}.") + r"b(\d+)\."
+        for bi in _indices(state, block_re):
+            src = f"{prefix}s{si}.b{bi}"
+            bp, bs = {}, {}
+            for j, name in enumerate(("conv1", "conv2")):
+                bp[f"ConvBN_{j}"], bs[f"ConvBN_{j}"] = _get_convbn(
+                    state, f"{src}.{name}")
+            bp["SEModule_0"] = {"Conv_0": _get_conv(state, f"{src}.se.fc1"),
+                                "Conv_1": _get_conv(state, f"{src}.se.fc2")}
+            bp["ConvBN_2"], bs["ConvBN_2"] = _get_convbn(state, f"{src}.conv3")
+            if f"{src}.downsample.conv.weight" in state:
+                bp["ConvBN_3"], bs["ConvBN_3"] = _get_convbn(
+                    state, f"{src}.downsample")
+            p[sname][f"RegNetYBlock_{bi - 1}"] = bp
+            s[sname][f"RegNetYBlock_{bi - 1}"] = bs
+    return p, s
+
+
+def _gpt_from(state: Mapping, prefix: str) -> Tree:
+    p: Tree = {"pos_emb": _a(state[f"{prefix}pos_emb"])}
+    if f"{prefix}vel_emb.weight" in state:
+        p["vel_emb"] = _get_dense(state, f"{prefix}vel_emb")
+    for i in _indices(state, re.escape(prefix) + r"blocks\.(\d+)\."):
+        src = f"{prefix}blocks.{i}"
+        bp: Tree = {ln: {"scale": _a(state[f"{src}.{ln}.weight"]),
+                         "bias": _a(state[f"{src}.{ln}.bias"])}
+                    for ln in ("ln1", "ln2")}
+        bp["attn"] = {lin: _get_dense(state, f"{src}.attn.{lin}")
+                      for lin in ("key", "query", "value", "proj")}
+        bp["mlp_fc"] = _get_dense(state, f"{src}.mlp.0")
+        bp["mlp_proj"] = _get_dense(state, f"{src}.mlp.2")
+        p[f"block_{i}"] = bp
+    p["ln_f"] = {"scale": _a(state[f"{prefix}ln_f.weight"]),
+                 "bias": _a(state[f"{prefix}ln_f.bias"])}
+    return p
+
+
+def variables_from_state_dict(state: Mapping[str, torch.Tensor],
+                              config: GlobalConfig) -> Dict[str, Tree]:
+    """Port state dict -> the JAX package's ``{'params', 'batch_stats'}``
+    as nested dicts of numpy arrays: the exact inverse of
+    ``state_dict_from_jax`` (transFuser / RegNetY, PointPillars)."""
+    mcfg = config.model
+    if mcfg.backbone != "transFuser":
+        raise NotImplementedError(
+            f"weight bridge covers the transFuser family only, not "
+            f"'{mcfg.backbone}' (ROADMAP.md Queue 1 item 11)")
+    for arch in (mcfg.image_architecture, mcfg.lidar_architecture):
+        if not arch.startswith("regnety"):
+            raise NotImplementedError(
+                f"weight bridge covers RegNetY trunks only, not '{arch}' "
+                "(ROADMAP.md Queue 1 item 11)")
+    params: Tree = {}
+    stats: Tree = {}
+    bb: Tree = {}
+    bbs: Tree = {}
+    bb["image_encoder"], bbs["image_encoder"] = _regnety_from(
+        state, "_model.image_encoder.features.")
+    bb["lidar_encoder"], bbs["lidar_encoder"] = _regnety_from(
+        state, "_model.lidar_encoder._model.")
+    for i in (1, 2, 3, 4):
+        bb[f"transformer{i}"] = _gpt_from(state, f"_model.transformer{i}.")
+    for name in ("change_channel_conv_image", "change_channel_conv_lidar"):
+        if f"_model.{name}.weight" in state:
+            bb[name] = _get_conv(state, f"_model.{name}")
+    bb["top_down"] = {name: _get_conv(state, f"_model.{name}")
+                      for name in ("c5_conv", "up_conv5", "up_conv4",
+                                   "up_conv3")}
+    params["backbone"], stats["backbone"] = bb, bbs
+
+    for dec in ("seg_decoder", "depth_decoder"):
+        if f"{dec}.deconv1.0.weight" in state:
+            stack = {}
+            for k in (1, 2, 3):
+                stack[f"deconv{k}_0"] = _get_conv(state, f"{dec}.deconv{k}.0")
+                stack[f"deconv{k}_1"] = _get_conv(state, f"{dec}.deconv{k}.2")
+            params[dec] = {"stack": stack}
+    params["pred_bev_conv0"] = _get_conv(state, "pred_bev.0")
+    params["pred_bev_conv1"] = _get_conv(state, "pred_bev.2")
+
+    branch_re = re.compile(r"head\.(\w+)_head\.0\.weight$")
+    branches = [m.group(1) for k in state if (m := branch_re.match(k))]
+    params["head"] = {b: {"conv0": _get_conv(state, f"head.{b}_head.0"),
+                          "conv1": _get_conv(state, f"head.{b}_head.2")}
+                      for b in branches}
+
+    gru: Tree = {f"join_{i}": _get_dense(state, f"join.{j}")
+                 for i, j in enumerate((0, 2, 4))}
+    gru["cell"] = {
+        "weight_ih": {"kernel": np.ascontiguousarray(
+            _a(state["decoder.weight_ih"]).T),
+            "bias": _a(state["decoder.bias_ih"])},
+        "weight_hh": {"kernel": np.ascontiguousarray(
+            _a(state["decoder.weight_hh"]).T),
+            "bias": _a(state["decoder.bias_hh"])}}
+    gru["output"] = _get_dense(state, "output")
+    params["wp_gru"] = gru
+
+    if mcfg.point_pillars.use_point_pillars:
+        key = "point_pillar_net.point_net.net"
+        net_p: Tree = {}
+        net_s: Tree = {}
+        for i in range(len(mcfg.point_pillars.num_features)):
+            net_p[f"fc{i}"] = _get_dense(state, f"{key}.{3 * i}")
+            net_p[f"bn{i}"], net_s[f"bn{i}"] = _get_bn(state,
+                                                       f"{key}.{3 * i + 1}")
+        params["point_pillar_net"] = {"DynamicPointNet_0": net_p}
+        stats["point_pillar_net"] = {"DynamicPointNet_0": net_s}
+    return {"params": params, "batch_stats": stats}

@@ -121,6 +121,24 @@ class AdamW:
         for p in self.params:
             p.grad = None
 
+    def state_dict(self) -> dict:
+        """The moments and the count of updates done, which is also the
+        schedule's position: a restored optimizer continues the same
+        schedule."""
+        return {"step_count": self.step_count, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        for name in ("mu", "nu"):
+            src = state[name]
+            if len(src) != len(self.params):
+                raise ValueError(f"optimizer state has {len(src)} {name} "
+                                 f"tensors for {len(self.params)} params")
+            for dst, v in zip(getattr(self, name), src):
+                dst.copy_(v)
+        self.step_count = int(state["step_count"])
+
     def clipped_grads(self) -> List[torch.Tensor]:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in self.params]

@@ -127,11 +127,20 @@ class Trainer:
             n += 1
         return {k: float(v) / max(n, 1) for k, v in sums.items()}
 
-    def train_epoch(self, batches: Iterable[Dict[str, np.ndarray]]
-                    ) -> Dict[str, float]:
-        means = self._mean(self.train_step, batches)
+    def train_epoch(self, batches: Iterable[Dict[str, np.ndarray]],
+                    fetch_metrics: bool = True) -> Dict[str, float]:
+        """fetch_metrics=True: the mean of every step's metrics (summed on
+        the device, read once). False: the last step's metrics, as the JAX
+        trainer returns them then (its CLI's default)."""
+        if fetch_metrics:
+            out = self._mean(self.train_step, batches)
+        else:
+            metrics: Batch = {}
+            for batch in batches:
+                metrics = self.train_step(self.put_batch(batch))
+            out = {k: float(v) for k, v in metrics.items()}
         self.epoch += 1
-        return means
+        return out
 
     def validate(self, batches: Iterable[Dict[str, np.ndarray]]
                  ) -> Dict[str, float]:
