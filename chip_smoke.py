@@ -27,6 +27,25 @@ Phases, one JSON line each:
                weights in fp32 on the card and on the CPU (plain path)
   agent        HybridAgent from a model dir (config snapshot + .pth) drives
                synthetic sensor frames: finite controls, p50 run_step
+  family_forward_ego
+               the other backbone families and trunks at full width
+               (160x704 RGB, 256x256 LiDAR, seeded init, batch 1, bf16):
+               latentTF, late_fusion and geometric_fusion on regnety_032,
+               transFuser on resnet34 / resnet18 and on convnext_base;
+               geometric's correspondences from a synthetic 30,000-point
+               cloud through the port's lidar_cam_correspondences. Each:
+               p50/p90 over 50 forwards, attention launches per forward
+               (16 / 0 / 0 / 16 / 16), peak memory, fp32 on the card vs
+               fp32 on the CPU
+  family_agent HybridAgent for latentTF (frames without a LiDAR entry)
+               and geometric_fusion (the reference grid view turned on by
+               its .pth), each from a model dir with a config snapshot and
+               a .pth: 20 compute frames, finite controls, p50 run_step,
+               geometric's host ms per frame of lidar_cam_correspondences
+  geometric_train
+               3 bf16 Trainer steps of geometric_fusion at batch 12 on a
+               synthetic batch: finite loss_total, step ms, no kernel
+               launches (the family has no attention)
   pillars_forward_ego
                the PointPillars config (the same trunks, a 40,000-point
                cloud with 20,000 valid) at seeded init, batch 1, bf16: 16
@@ -59,9 +78,13 @@ Phases, one JSON line each:
                epoch of the plain loader alone), and the PNG decode ms of a
                160x960 strip with libpng-style adaptive row filters
 
-The main path's launches are counted in the agent, pillars_forward_ego,
-train and cli phases (counts set to 0 just before each run, read just
-after).
+The main path's launches are counted in the agent, family_forward_ego,
+family_agent, geometric_train, pillars_forward_ego, train and cli phases
+(counts set to 0 just before each run, read just after). The kernels
+phase also checks attention at the head dims of the ResNet and ConvNeXt
+GPT stages (D = 16, 32, 64, 128, 256), each row naming the configurations
+that give it; the attention summary in the kernels line stays over the
+flagship's four shapes.
 Then a line with every kernel's numbers, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
@@ -95,6 +118,29 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 ATTN_MAIN_SHAPES = [(1, 174, 4, d) for d in (18, 54, 144, 378)]
 ATTN_EXTRA_SHAPES = [(2, 174, 4, 18), (1, 200, 4, 40)]
+# the GPT stages' head dims (stage width / 4 heads) of the other trunks
+ATTN_FAMILY_SHAPES = {
+    (1, 174, 4, 16): "transFuser resnet34/resnet18 stage 1",
+    (1, 174, 4, 32): "transFuser resnet34/resnet18 stage 2, "
+                     "convnext_base stage 1",
+    (1, 174, 4, 64): "transFuser resnet34/resnet18 stage 3, "
+                     "convnext_base stage 2",
+    (1, 174, 4, 128): "transFuser resnet34/resnet18 stage 4, "
+                      "convnext_base stage 3",
+    (1, 174, 4, 256): "transFuser convnext_base stage 4",
+}
+# (name, backbone, image trunk, LiDAR trunk, attention launches per forward)
+FAMILY_CASES = [
+    ("latentTF", "latentTF", "regnety_032", "regnety_032", 16),
+    ("late_fusion", "late_fusion", "regnety_032", "regnety_032", 0),
+    ("geometric_fusion", "geometric_fusion", "regnety_032", "regnety_032",
+     0),
+    ("transFuser_resnet34_resnet18", "transFuser", "resnet34", "resnet18",
+     16),
+    ("transFuser_convnext_base", "transFuser", "convnext_base",
+     "convnext_base", 16),
+]
+GEOMETRIC_CLOUD_POINTS = 30000
 PILLAR_POINTS, PILLAR_VALID = 40000, 20000
 PILLAR_CELLS = 256 * 256  # per sample, + 1 sentinel
 # (name, batch, points per sample, channels, segments per sample, kind)
@@ -155,16 +201,21 @@ def device_time(fn, reps: int = 50) -> tuple:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not events:
-        raise AssertionError("the profiler recorded no device work")
-    return (sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps,
-            len(events) / reps)
+    # CUPTI now and then hands back no device activity for a window (seen
+    # once on an H100, for work it had recorded in an earlier call): the
+    # window is profiled again, up to three times in all
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            return (sum(e.time_range.elapsed_us() for e in events) / 1e3 /
+                    reps, len(events) / reps)
+    raise AssertionError("the profiler recorded no device work")
 
 
 def host_ms(fn, reps: int = 200) -> float:
@@ -317,7 +368,8 @@ def phase_kernels():
     rows = []
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in ATTN_MAIN_SHAPES + ATTN_EXTRA_SHAPES:
+        for shape in (ATTN_MAIN_SHAPES + ATTN_EXTRA_SHAPES +
+                      list(ATTN_FAMILY_SHAPES)):
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype) for _ in range(3))
             got = attention(q, k, v)
@@ -348,7 +400,8 @@ def phase_kernels():
                 library_ms=cuda_ms(library),
                 library_device_ms=device_time(library)[0],
                 bound_ms=bound, bound_by=bound_by,
-                main_path=shape in ATTN_MAIN_SHAPES))
+                main_path=shape in ATTN_MAIN_SHAPES,
+                used_by=ATTN_FAMILY_SHAPES.get(shape)))
     emit("kernels", kernels=["attention"], attention=rows)
     # the kernel's line: the four shapes one forward_ego gives it (each
     # 4 times, once per GPT layer), bf16, one launch of each
@@ -361,6 +414,11 @@ def phase_kernels():
         else "bytes"
     summary["max_abs_err"] = max_err
     return summary
+
+
+def top_scores(boxes, n_top=10):
+    """The n_top highest box scores of sample 0, on the CPU."""
+    return boxes[0, :, 7].float().cpu().sort(descending=True)[0][:n_top]
 
 
 def flagship_inputs(cfg, seed=0):
@@ -426,9 +484,6 @@ def phase_forward_ego(model, cfg):
     wp_cpu, boxes_cpu, _ = cpu_model.forward_ego(*args_on("cpu"))
     cpu_s = time.perf_counter() - t0
     del cpu_model
-
-    def top_scores(boxes, n_top=10):
-        return boxes[0, :, 7].float().cpu().sort(descending=True)[0][:n_top]
 
     wp32_c, wp_bf_c = wp32.cpu(), wp_bf.float().cpu()
     scale = max(1.0, float(wp32_c.abs().max()))
@@ -565,6 +620,225 @@ def phase_agent(cfg, state):
     return launches
 
 
+def family_config(backbone, image, lidar):
+    import dataclasses
+
+    from transfuser_torch.config import GlobalConfig
+
+    cfg = GlobalConfig()
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, backbone=backbone, image_architecture=image,
+        lidar_architecture=lidar))
+
+
+def synthetic_cloud(n, seed):
+    """(n, 3) raw CARLA-frame points (x left, y forward, z up), most of
+    them in front of the car and inside the 32 m BEV."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-20, 20, n), rng.uniform(-5, 35, n),
+                     rng.uniform(-2.5, 1.0, n)], axis=-1)
+
+
+def phase_family_forward_ego():
+    """The other families and trunks at full width: bf16 latency and
+    attention launches, fp32 card vs fp32 CPU."""
+    from transfuser_torch.data.correspondences import \
+        lidar_cam_correspondences
+    from transfuser_torch.models import LidarCenterNet
+    from transfuser_torch.ops import kernels
+
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    keys = ("rgb", "lidar", "tp", "tpi", "vel")
+    for name, backbone, image, lidar, want in FAMILY_CASES:
+        cfg = family_config(backbone, image, lidar)
+        x = flagship_inputs(cfg, seed=5)
+        geo, corr_ms = {}, None
+        if backbone == "geometric_fusion":
+            cloud = synthetic_cloud(GEOMETRIC_CLOUD_POINTS, seed=6)
+            t0 = time.perf_counter()
+            bev, cam = lidar_cam_correspondences(cloud)
+            corr_ms = (time.perf_counter() - t0) * 1e3
+            geo = {"bev_points": bev[None], "cam_points": cam[None]}
+
+        def inputs(dev):
+            return ([torch.from_numpy(x[k]).to(dev) for k in keys],
+                    {k: torch.from_numpy(v).to(dev) for k, v in geo.items()})
+
+        torch.cuda.reset_peak_memory_stats()
+        model = LidarCenterNet(cfg, dtype=torch.bfloat16, device="cuda",
+                               seed=3)
+        args, extra = inputs("cuda")
+        for _ in range(2):
+            model.forward_ego(*args, **extra)
+        torch.cuda.synchronize()
+        n = 50
+        kernels.reset_launches()       # the main path's run starts here
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            wp_bf, boxes_bf, _ = model.forward_ego(*args, **extra)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launches)  # ... and ends here
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_forward = {k: v / n for k, v in launches.items()}
+        if per_forward != {"attention": want, "scatter_max": 0}:
+            raise AssertionError(f"{name}: launches per forward_ego "
+                                 f"{per_forward}, expected {want} attention")
+        if not (torch.isfinite(wp_bf).all() and
+                torch.isfinite(boxes_bf).all()):
+            raise AssertionError(f"{name}: non-finite forward_ego outputs")
+
+        model.dtype = torch.float32
+        wp32, boxes32, _ = model.forward_ego(*args, **extra)
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        torch.cuda.empty_cache()
+        cpu_model = LidarCenterNet(cfg, dtype=torch.float32, device="cpu")
+        cpu_model.load_state_dict(state, strict=True)
+        cpu_args, cpu_extra = inputs("cpu")
+        t0 = time.perf_counter()
+        wp_cpu, boxes_cpu, _ = cpu_model.forward_ego(*cpu_args, **cpu_extra)
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        checks = {
+            "wp_fp32_card_vs_cpu": (float((wp32.cpu() - wp_cpu).abs().max()),
+                                    1e-3),
+            "scores_fp32_card_vs_cpu": (float((top_scores(boxes32) -
+                                               top_scores(boxes_cpu))
+                                              .abs().max()), 1e-4),
+        }
+        emit("family_forward_ego", config=name, backbone=backbone,
+             image_architecture=image, lidar_architecture=lidar,
+             launches_per_forward=per_forward, forwards=n,
+             bf16_p50_ms=float(np.percentile(times, 50)),
+             bf16_p90_ms=float(np.percentile(times, 90)),
+             peak_memory_gb=peak_gb, cpu_fp32_s=cpu_s,
+             correspondences_ms=corr_ms,
+             pred_wp_bf16=wp_bf.float().cpu()[0].tolist(),
+             checks={k: {"err": e, "tol": t} for k, (e, t) in
+                     checks.items()})
+        for check, (err, tol) in checks.items():
+            if not err <= tol:
+                raise AssertionError(f"{name} {check}: {err} > {tol}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def phase_family_agents():
+    """HybridAgent for latentTF (no LiDAR sensor, frames without one) and
+    geometric_fusion (per-frame correspondences on the host), each from a
+    model dir with a config snapshot and a .pth."""
+    from transfuser_torch.agents.hybrid_agent import HybridAgent
+    from transfuser_torch.data.correspondences import \
+        lidar_cam_correspondences
+    from transfuser_torch.models import LidarCenterNet
+    from transfuser_torch.ops import kernels
+
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    for backbone, per_frame in (("latentTF", 16), ("geometric_fusion", 0)):
+        cfg = family_config(backbone, "regnety_032", "regnety_032")
+        model = LidarCenterNet(cfg, dtype=torch.float32, device="cpu",
+                               seed=2)
+        with tempfile.TemporaryDirectory() as model_dir:
+            cfg.save(os.path.join(model_dir, "config.json"))
+            torch.save({f"module.{k}": v
+                        for k, v in model.state_dict().items()},
+                       os.path.join(model_dir, "model_0.pth"))
+            del model
+            t0 = time.perf_counter()
+            agent = HybridAgent(model_dir)
+            setup_s = time.perf_counter() - t0
+        sensors = [sen["id"] for sen in agent.sensors()]
+        if ("lidar" in sensors) != (backbone != "latentTF"):
+            raise AssertionError(f"{backbone}: sensors {sensors}")
+        if (backbone == "geometric_fusion" and
+                not agent.config.model.geometric_reference_view):
+            raise AssertionError("a .pth member left the reference "
+                                 "correspondence-grid view off")
+        plan = [({"lat": x / 111324.60662786, "lon": 0.0}, 4)
+                for x in range(0, 200, 10)]
+        agent.set_global_plan(plan, [(float(x), 0.0)
+                                     for x in range(0, 200, 10)])
+        frames = list(synthetic_sensor_frames(cfg, 42, seed=4))
+        if backbone == "latentTF":
+            for frame in frames:
+                del frame["lidar"]
+        for i, frame in enumerate(frames[:2]):  # warm-up compute frame
+            agent.run_step(frame, 0.05 * i)
+        torch.cuda.synchronize()
+        kernels.reset_launches()       # the main path's run starts here
+        compute_ms, controls, corr_ms = [], [], []
+        for i, frame in enumerate(frames[2:], start=2):
+            compute = (agent.step + 1) % cfg.controller.action_repeat == 0
+            t0 = time.perf_counter()
+            control = agent.run_step(frame, 0.05 * i)
+            wall = (time.perf_counter() - t0) * 1e3
+            if compute:
+                compute_ms.append(wall)
+            controls.append([control.steer, control.throttle,
+                             control.brake])
+        launches = dict(kernels.launches)  # ... and ends here
+        if backbone == "geometric_fusion":
+            # the agent's host work per compute frame, timed on its own
+            for frame in frames[2::2]:
+                t0 = time.perf_counter()
+                lidar_cam_correspondences(frame["lidar"][1][:, :3])
+                corr_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(controls).all():
+            raise AssertionError(f"{backbone}: non-finite controls")
+        expected = {"attention": per_frame * len(compute_ms),
+                    "scatter_max": 0}
+        if launches != expected:
+            raise AssertionError(f"{backbone} agent launches {launches}, "
+                                 f"expected {expected}")
+        emit("family_agent", backbone=backbone, setup_s=setup_s,
+             sensors=sensors, compute_frames=len(compute_ms),
+             run_step_p50_ms=float(np.percentile(compute_ms, 50)),
+             run_step_ms=compute_ms, launches=launches,
+             correspondences_p50_ms=(float(np.percentile(corr_ms, 50))
+                                     if corr_ms else None),
+             last_control=controls[-1], pred_wp=agent.pred_wp.tolist())
+        del agent
+        torch.cuda.empty_cache()
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def phase_geometric_train(steps=3):
+    from transfuser_torch.data.synthetic import synthetic_batch
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.train.trainer import Trainer
+
+    cfg = family_config("geometric_fusion", "regnety_032", "regnety_032")
+    bsz = cfg.train.batch_size
+    host = synthetic_batch(cfg, bsz, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, dtype=torch.bfloat16, device="cuda", seed=0)
+    batch = trainer.put_batch(host)
+    torch.cuda.synchronize()
+    kernels.reset_launches()           # the main path's run starts here
+    totals, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        totals.append(float(metrics["loss_total"]))
+    launches = dict(kernels.launches)  # ... and ends here
+    if launches != {"attention": 0, "scatter_max": 0}:
+        raise AssertionError(f"geometric train launches {launches}")
+    if not np.isfinite(totals).all():
+        raise AssertionError(f"non-finite geometric loss_total {totals}")
+    emit("geometric_train", batch=bsz, steps=steps, step_ms=times,
+         loss_total=totals, launches=launches,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del trainer, batch
+    return launches
+
+
 def pillar_config(**gpt):
     import dataclasses
 
@@ -633,9 +907,6 @@ def phase_pillars_forward_ego(cfg):
         *args_on("cpu"), num_points=torch.from_numpy(x["num_points"]))
     cpu_s = time.perf_counter() - t0
     del cpu_model
-
-    def top_scores(boxes, n_top=10):
-        return boxes[0, :, 7].float().cpu().sort(descending=True)[0][:n_top]
 
     checks = {
         "wp_fp32_card_vs_cpu": (float((wp32.cpu() - wp_cpu).abs().max()),
@@ -1080,6 +1351,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = dict.fromkeys(kernels.KERNELS, 0)
     for phase in (lambda: phase_agent(cfg, state),
+                  phase_family_forward_ego, phase_family_agents,
+                  phase_geometric_train,
                   lambda: phase_pillars_forward_ego(pillar_config()),
                   lambda: phase_train(pillar_config(), profile=profile),
                   phase_cli):

@@ -187,14 +187,6 @@ def test_bridge_round_trips_are_exact(pillars):
         assert got == want, col
 
 
-def test_bridge_refuses_other_families():
-    cfg = _config()
-    other = cfg.replace(model=dataclasses.replace(cfg.model,
-                                                  backbone="latentTF"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        variables_from_state_dict({}, other)
-
-
 # ---------------------------------------------------------- forward parity
 
 def test_jax_written_weights_drive_the_port(tmp_path, jax_side):

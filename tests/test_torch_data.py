@@ -296,8 +296,13 @@ def test_dataset_caches_and_refusals(data_root, tmp_path):
     import dataclasses
     geo = cfg.replace(model=dataclasses.replace(cfg.model,
                                                 backbone="geometric_fusion"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CarlaDataset(train, geo, augment=False)[0]
+    s = CarlaDataset(train, geo, augment=False)[0]
+    # geometric_fusion's correspondences: cell indices into the other
+    # branch's anchor grid, int32
+    for key, shape, hi in (("bev_points", (8, 8, 5, 2), 22),
+                           ("cam_points", (5, 22, 5, 2), 8)):
+        assert s[key].shape == shape and s[key].dtype == np.int32, key
+        assert 0 <= s[key].min() and s[key].max() < hi, key
 
 
 # ------------------------------------------------------------------- loaders

@@ -129,7 +129,8 @@ def test_forward_ego_parity(models):
 
 def test_compute_aux_and_other_families_raise(models):
     """compute_aux (training's maps) is ported and matches the JAX
-    package; the other backbone families still raise."""
+    package; the other backbone families build and run (their parity is
+    held in tests/test_torch_families.py)."""
     import dataclasses
 
     cfg, jm, variables, tm, x = models
@@ -145,8 +146,14 @@ def test_compute_aux_and_other_families_raise(models):
                                    rtol=RTOL, atol=ATOL, err_msg=k)
     other = cfg.replace(model=dataclasses.replace(cfg.model,
                                                   backbone="late_fusion"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LidarCenterNet(other, device="cpu")
+    late = LidarCenterNet(other, dtype=torch.float32, device="cpu")
+    assert type(late._model).__name__ == "LateFusionBackbone"
+    with torch.no_grad():
+        out = late(*_torch_args(x), compute_aux=True)
+    assert set(out) == set(want)
+    for k in want:
+        assert out[k].shape == want[k].shape, k
+        assert torch.isfinite(out[k]).all(), k
 
 
 def test_reference_replica_checkpoint_loads_strictly(tmp_path):
@@ -191,6 +198,6 @@ def test_lidar_stem_registered_as_conv1_is_renamed():
     state = {"module._model.lidar_encoder._model.conv1.weight": 1,
              "module._model.lidar_encoder._model.layer2.b1.x": 2,
              "module.head.heatmap_head.0.weight": 3}
-    assert canonical_reference_state(state) == {
+    assert canonical_reference_state(state, _parity_config()) == {
         "_model.lidar_encoder._model.stem.conv.weight": 1,
         "head.heatmap_head.0.weight": 3}

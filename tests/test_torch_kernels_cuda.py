@@ -59,6 +59,27 @@ def test_attention_kernel_matches_plain_version_on_card(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_attention_kernel_at_the_other_trunks_head_dims_on_card(d, dtype):
+    """The head dims of the ResNet-18/34 (16/32/64/128) and ConvNeXt-base
+    (32/64/128/256) GPT stages, at one forward's shape (1, 174, 4, D)."""
+    _needs_card()
+    q, k, v = [torch.from_numpy(a).to("cuda", dtype)
+               for a in _qkv((1, 174, 4, d), seed=d)]
+    before = kernels.launches["attention"]
+    got = attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["attention"] == before + 1
+    want = reference_attention(q, k, v).float()
+    if dtype == torch.float32:
+        rtol, atol = 1e-5, 1e-5
+    else:
+        rtol, atol = 0.0, float(want.abs().max()) * 2.0 ** -7
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
 def test_attention_kernel_refuses_inputs_that_need_a_gradient_on_card():
     """The kernel has no backward (nor had the Pallas kernel): on the card
     the wrapper raises rather than return an output with no grad_fn; under

@@ -12,17 +12,22 @@ Behavioral spec (team_code_transfuser/submission_agent.py:34-537):
   * ensemble fusion: waypoint mean; detection boxes fused by polygon-IoU
     NMS (:321-339),
   * stuck/creep logic + LiDAR safety box emergency stop (:284-288,
-    341-390).
+    341-390); latentTF, which has no LiDAR, checks the fused predicted
+    boxes instead (:396-430).
 
 Each compute frame packs the sensor inputs into one uint8 buffer (camera
-pixels, LiDAR hit counts 0..5, target-point raster, and the three float32
-scalars), uploads it once through pinned memory, widens it on the device,
-runs every member's ``forward_ego`` in bf16 and brings the
-waypoints and boxes of all members back in one copy.
+pixels, LiDAR hit counts 0..5, target-point raster, the three float32
+scalars and, under geometric_fusion, the frame's correspondence grids:
+cell indices below 22), uploads it once through pinned memory, widens it
+on the device, runs every member's ``forward_ego`` in bf16 and brings the
+waypoints and boxes of all members back in one copy. latentTF lists no
+LiDAR sensor and reads none: its histogram is zeros (the model replaces it
+with a positional grid); geometric_fusion computes the correspondences on
+the host from the frame's cloud.
 
-transFuser members from reference ``.pth`` files or natively trained
-``model_*.msgpack`` files (the JAX package's inference format, written by
-either package's training CLI). ``pipelined_fetch`` and
+Members of any backbone family from reference ``.pth`` files or natively
+trained ``model_*.msgpack`` files (the JAX package's inference format,
+written by either package's training CLI). ``pipelined_fetch`` and
 ``async_inference`` are still to be ported (ROADMAP.md queue 1) and raise.
 """
 
@@ -43,7 +48,9 @@ from ..control.gps import GPSBuffer
 from ..control.nms_ensemble import non_maximum_suppression
 from ..control.pid import PIDController, control_pid
 from ..control.route_planner import RoutePlanner
-from ..control.safety import num_points_in_safety_box
+from ..control.safety import (bb_detected_in_front_of_vehicle,
+                              num_points_in_safety_box)
+from ..data.correspondences import lidar_cam_correspondences
 from ..data.decoders import rasterize_target_point
 from ..data.lidar_np import lidar_to_histogram
 from ..data.pack import LIDAR_HIST_MAX
@@ -81,8 +88,10 @@ class HybridAgent(AutonomousAgent):
         n_pth = sum(p.endswith(".pth") for p in weight_files)
         if n_pth and not self.config.model.gpt.reference_view_unpack:
             # Reference torch checkpoints carry the GPT token-unpack view
-            # quirk (models/gpt.py); natively trained members do not. Flip
-            # it only when EVERY member needs it, as the JAX agent does.
+            # quirk (models/gpt.py) and, under geometric_fusion, the
+            # correspondence-grid view quirk (models/geometric_fusion.py);
+            # natively trained members do not. Flip them only when EVERY
+            # member needs them, as the JAX agent does.
             if n_pth != len(weight_files):
                 raise ValueError(
                     "ensemble mixes reference .pth members (which need "
@@ -91,10 +100,15 @@ class HybridAgent(AutonomousAgent):
                     f"model dirs ({path_to_conf_file})")
             gpt = dataclasses.replace(self.config.model.gpt,
                                       reference_view_unpack=True)
-            self.config = self.config.replace(
-                model=dataclasses.replace(self.config.model, gpt=gpt))
+            model = dataclasses.replace(self.config.model, gpt=gpt)
+            if model.backbone == "geometric_fusion":
+                model = dataclasses.replace(model,
+                                            geometric_reference_view=True)
+            self.config = self.config.replace(model=model)
 
         cfg = self.config
+        self.backbone = cfg.model.backbone
+        self.geometric = self.backbone == "geometric_fusion"
         self.members: List[LidarCenterNet] = []
         for i, path in enumerate(weight_files or [None]):
             model = LidarCenterNet(cfg, dtype=torch.bfloat16, device="cpu",
@@ -130,8 +144,13 @@ class HybridAgent(AutonomousAgent):
                              s.lidar_resolution_width, 2)
         self._tpi_shape = (1, s.lidar_resolution_height,
                            s.lidar_resolution_width, 1)
-        sizes = [_SCALARS] + [int(np.prod(sh)) for sh in (
-            self._rgb_shape, self._lidar_shape, self._tpi_shape)]
+        shapes = [self._rgb_shape, self._lidar_shape, self._tpi_shape]
+        if self.geometric:
+            g = self.config.model.gpt
+            shapes += [(1, g.lidar_vert_anchors, g.lidar_horz_anchors, 5, 2),
+                       (1, g.img_vert_anchors, g.img_horz_anchors, 5, 2)]
+        self._geo_shapes = shapes[3:]
+        sizes = [_SCALARS] + [int(np.prod(sh)) for sh in shapes]
         self._offsets = np.cumsum([0] + sizes)
         pin = self.device.type == "cuda"
         self._host = torch.empty(int(self._offsets[-1]), dtype=torch.uint8,
@@ -139,10 +158,12 @@ class HybridAgent(AutonomousAgent):
         self._dev = torch.empty_like(self._host, device=self.device)
 
     def _infer(self, rgb: np.ndarray, lidar: np.ndarray, tpi: np.ndarray,
-               target_point: np.ndarray, speed: float
+               target_point: np.ndarray, speed: float,
+               geo: Tuple[np.ndarray, ...] = ()
                ) -> Tuple[np.ndarray, np.ndarray]:
         """One packed upload, every member's forward_ego, one copy back.
-        Returns wp (n_models, 1, 4, 2) and boxes (n_models, 1, k, 8)."""
+        ``geo``: geometric_fusion's (bev_points, cam_points). Returns wp
+        (n_models, 1, 4, 2) and boxes (n_models, 1, k, 8)."""
         o = self._offsets
         host = self._host.numpy()
         scal = np.zeros(_SCALARS // 4, np.float32)
@@ -152,6 +173,8 @@ class HybridAgent(AutonomousAgent):
         host[o[1]:o[2]] = rgb.reshape(-1)
         host[o[2]:o[3]] = lidar.reshape(-1)
         host[o[3]:o[4]] = tpi.reshape(-1)
+        for j, pts in enumerate(geo):
+            host[o[4 + j]:o[5 + j]] = pts.reshape(-1)
         dev = self._dev
         dev.copy_(self._host, non_blocking=True)
         sc = dev[o[0]:o[1]].view(torch.float32)
@@ -160,10 +183,12 @@ class HybridAgent(AutonomousAgent):
                    .to(torch.float32) / LIDAR_HIST_MAX)
         tpi_d = dev[o[3]:o[4]].reshape(self._tpi_shape).to(torch.float32)
         tp_d, speed_d = sc[None, :2], sc[2:3]
+        geo_d = [dev[o[4 + j]:o[5 + j]].reshape(sh)
+                 for j, sh in enumerate(self._geo_shapes)]
         outs = []
         for model in self.members:
             wp, boxes, _labels = model.forward_ego(rgb_d, lidar_d, tp_d,
-                                                   tpi_d, speed_d)
+                                                   tpi_d, speed_d, *geo_d)
             outs += [wp.to(torch.float32).reshape(-1),
                      boxes.to(torch.float32).reshape(-1)]
         flat = torch.cat(outs).cpu().numpy()  # the one device->host copy
@@ -193,7 +218,7 @@ class HybridAgent(AutonomousAgent):
         else:
             cam_w, cam_h, cam_fov = (s.camera_width, s.camera_height,
                                      s.camera_fov)
-        return [
+        out = [
             {"type": "sensor.camera.rgb",
              "x": s.camera_pos[0], "y": s.camera_pos[1], "z": s.camera_pos[2],
              "roll": rot[0], "pitch": rot[1], "yaw": rot[2],
@@ -209,11 +234,14 @@ class HybridAgent(AutonomousAgent):
              "id": "gps"},
             {"type": "sensor.speedometer",
              "reading_frequency": ctrl.carla_fps, "id": "speed"},
-            {"type": "sensor.lidar.ray_cast",
-             "x": s.lidar_pos[0], "y": s.lidar_pos[1], "z": s.lidar_pos[2],
-             "roll": s.lidar_rot[0], "pitch": s.lidar_rot[1],
-             "yaw": s.lidar_rot[2], "id": "lidar"},
         ]
+        if self.backbone != "latentTF":  # the camera-only family
+            out.append({
+                "type": "sensor.lidar.ray_cast",
+                "x": s.lidar_pos[0], "y": s.lidar_pos[1], "z": s.lidar_pos[2],
+                "roll": s.lidar_rot[0], "pitch": s.lidar_rot[1],
+                "yaw": s.lidar_rot[2], "id": "lidar"})
+        return out
 
     # ----------------------------------------------------------------- tick
     def _init(self) -> None:
@@ -265,7 +293,7 @@ class HybridAgent(AutonomousAgent):
         result = {"rgb": rgb, "gps": pos, "speed": speed, "compass": compass,
                   "target_point": local_command,
                   "next_command": getattr(next_cmd, "value", next_cmd)}
-        if not lite:
+        if not lite and self.backbone != "latentTF":
             result["lidar"] = np.asarray(input_data["lidar"][1])[:, :3]
         return result
 
@@ -292,11 +320,14 @@ class HybridAgent(AutonomousAgent):
         rgb = np.asarray(tick_data["rgb"])
         if rgb.dtype != np.uint8:
             rgb = np.round(rgb).astype(np.uint8)
-        pts = tick_data["lidar"].copy()
-        pts[:, 1] *= -1.0
-        lidar_bev = np.round(lidar_to_histogram(
-            pts, grid=cfg.sensors.lidar_resolution_width)
-            * LIDAR_HIST_MAX).astype(np.uint8)
+        if self.backbone == "latentTF":
+            lidar_bev = np.zeros(self._lidar_shape[1:], np.uint8)
+        else:
+            pts = tick_data["lidar"].copy()
+            pts[:, 1] *= -1.0
+            lidar_bev = np.round(lidar_to_histogram(
+                pts, grid=cfg.sensors.lidar_resolution_width)
+                * LIDAR_HIST_MAX).astype(np.uint8)
         target_point = np.asarray(tick_data["target_point"], np.float32)
         tp_image = rasterize_target_point(
             target_point, size=cfg.sensors.lidar_resolution_width
@@ -308,8 +339,15 @@ class HybridAgent(AutonomousAgent):
             is_stuck = True
             self.forced_move += 1
 
+        geo = ()
+        if self.geometric:
+            # per-frame correspondence grids from the raw cloud
+            # (submission_agent.py:302-312); cell indices < 22, so the
+            # uint8 upload carries them exactly
+            geo = tuple(p.astype(np.uint8) for p in
+                        lidar_cam_correspondences(tick_data["lidar"][:, :3]))
         wp, boxes = self._infer(rgb, lidar_bev, tp_image, target_point,
-                                tick_data["speed"])
+                                tick_data["speed"], geo)
 
         # ensemble fusion
         pred_wp = wp.mean(axis=0)[0]   # mean over members
@@ -341,9 +379,14 @@ class HybridAgent(AutonomousAgent):
 
         # safety override (only while creeping)
         if self.use_lidar_safe_check and is_stuck:
-            pts = tick_data["lidar"].copy()
-            pts[:, 1] *= -1.0
-            if num_points_in_safety_box(pts, ctrl) > 0:
+            if self.backbone == "latentTF":
+                danger = bb_detected_in_front_of_vehicle(
+                    fused_boxes, tick_data["speed"], ctrl)
+            else:
+                pts = tick_data["lidar"].copy()
+                pts[:, 1] *= -1.0
+                danger = num_points_in_safety_box(pts, ctrl) > 0
+            if danger:
                 control = VehicleControl(steer=float(steer), throttle=0.0,
                                          brake=1.0)
 

@@ -23,6 +23,7 @@ import numpy as np
 
 from ..config import GlobalConfig
 from . import decoders, lidar_np, png
+from .correspondences import lidar_cam_correspondences
 from .pack import pack_sample
 
 
@@ -194,9 +195,11 @@ class CarlaDataset:
         sample["speed"] = np.float32(measurements["speed"])
 
         if cfg.model.backbone == "geometric_fusion":
-            raise NotImplementedError(
-                "geometric_fusion's lidar<->camera correspondences are not "
-                "ported yet (ROADMAP.md Queue 1 item 11)")
+            # int32 cell indices; packing and the caches pass them through
+            bev_pts, cam_pts = lidar_cam_correspondences(
+                raw.astype(np.float64)[:, :3])
+            sample["bev_points"] = bev_pts
+            sample["cam_points"] = cam_pts
 
         if cfg.model.point_pillars.use_point_pillars:
             mx = cfg.model.point_pillars.max_lidar_points

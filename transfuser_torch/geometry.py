@@ -1,10 +1,11 @@
 """(Copy of transfuser_tpu/geometry.py: the parts the driving agent and the
 data reader use.)
 
-Shared geometry: rig transforms, convex IoU, bicycle model.
+Shared geometry: rig transforms, OBBs, convex IoU, bicycle model.
 
 Pure numpy (host-side). Formulas match the reference exactly:
   * lidar<->vehicle<->BEV-image transforms: team_code_transfuser/utils.py:3-37
+  * OBB/SAT intersection: submission_agent.py:506-537
   * convex polygon IoU for ensemble NMS: submission_agent.py:491-497
   * kinematic bicycle model (World-on-Rails constants):
     submission_agent.py:663-701 / autopilot.py:1152-1190
@@ -51,7 +52,45 @@ def lidar_to_bevimage() -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Angles
+# Oriented bounding boxes (2D, for the latentTF safety check)
+
+
+def rotation2d(rad: float) -> np.ndarray:
+    c, s = np.cos(rad), np.sin(rad)
+    return np.array([[c, -s], [s, c]])
+
+
+def obb_corners(center: np.ndarray, extent: np.ndarray, yaw: float) -> np.ndarray:
+    """4 corner points of an oriented box. center (2,), extent (2,) half-sizes."""
+    r = rotation2d(yaw)
+    signs = np.array([[1, 1], [1, -1], [-1, -1], [-1, 1]], dtype=np.float64)
+    return center[None, :] + (signs * extent[None, :]) @ r.T
+
+
+def _project_polygon(axis: np.ndarray, poly: np.ndarray) -> tuple:
+    d = poly @ axis
+    return d.min(), d.max()
+
+
+def obb_intersect(corners_a: np.ndarray, corners_b: np.ndarray) -> bool:
+    """Separating-axis test for two convex quads (submission_agent.py:506-537)."""
+    for poly in (corners_a, corners_b):
+        for i in range(4):
+            edge = poly[(i + 1) % 4] - poly[i]
+            axis = np.array([-edge[1], edge[0]])
+            n = np.linalg.norm(axis)
+            if n < 1e-12:
+                continue
+            axis = axis / n
+            min_a, max_a = _project_polygon(axis, corners_a)
+            min_b, max_b = _project_polygon(axis, corners_b)
+            if max_a < min_b or max_b < min_a:
+                return False
+    return True
+
+
+# --------------------------------------------------------------------------
+# Convex polygons (ensemble NMS)
 
 
 def polygon_area(poly: np.ndarray) -> float:

@@ -45,6 +45,14 @@ class LayerNorm(nn.LayerNorm):
                             self.weight, self.bias, self.eps).to(x.dtype)
 
 
+class LayerNorm2d(LayerNorm):
+    """LayerNorm over the channels of an NCHW tensor (timm's ConvNeXt
+    ``LayerNorm2d``), the same fp32 island."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
                     x: torch.Tensor) -> torch.Tensor:
     """x (N, C, ...) in any float dtype -> normalised, in x's dtype."""

@@ -1,5 +1,5 @@
-"""Top-level perception + planning model, transFuser family (counterpart of
-transfuser_tpu/models/lidar_centernet.py; reference
+"""Top-level perception + planning model, all four backbone families
+(counterpart of transfuser_tpu/models/lidar_centernet.py; reference
 team_code_transfuser/model.py:538-805).
 
 Parameters follow the reference checkpoint's names (``_model.*``,
@@ -11,11 +11,15 @@ Parameters stay fp32 and the model computes in ``self.dtype`` (bf16 by
 default), with the JAX package's fp32 islands. Public inputs and outputs
 are NHWC.
 
-The transFuser family, with the BEV histogram or (``use_point_pillars``)
-the raw point cloud as LiDAR input. Training mode (``.train()``) is the
-JAX package's ``train=True``: BatchNorm on batch statistics, GPT dropout.
+``config.model.backbone`` picks the family: transFuser (the BEV histogram
+or, under ``use_point_pillars``, the raw point cloud as LiDAR input),
+late_fusion, latentTF (camera only: a positional grid replaces the
+histogram) or geometric_fusion (which also takes the per-frame
+``bev_points`` / ``cam_points`` correspondences); the trunks are RegNetY,
+ResNet or ConvNeXt. Training mode (``.train()``) is the JAX package's
+``train=True``: BatchNorm on batch statistics, GPT dropout.
 ``compute_aux=True`` adds the training-only maps ``pred_bev``,
-``pred_semantic`` and ``pred_depth``. The other backbone families raise.
+``pred_semantic`` and ``pred_depth``.
 """
 
 from __future__ import annotations
@@ -29,11 +33,22 @@ from ..config import GlobalConfig
 from ..ops import centernet as cn
 from ..ops.image_ops import resize_bilinear, to_nchw, to_nhwc
 from .decoders import DepthDecoder, SegDecoder
+from .encoders import ConvNeXtBlock
+from .geometric_fusion import GeometricFusionBackbone
 from .heads import LidarCenterNetHead, bias_init_with_prob
+from .late_fusion import LateFusionBackbone
+from .latent_tf import LatentTFBackbone
 from .layers import BatchNorm1d, BatchNorm2d, Conv2d, LayerNorm, Linear
 from .point_pillar import PointPillarNet
 from .transfuser import TransfuserBackbone
 from .waypoint_gru import make_join, waypoint_rollout
+
+BACKBONES = {
+    "transFuser": TransfuserBackbone,
+    "late_fusion": LateFusionBackbone,
+    "geometric_fusion": GeometricFusionBackbone,
+    "latentTF": LatentTFBackbone,
+}
 
 
 class LidarCenterNet(nn.Module):
@@ -41,17 +56,16 @@ class LidarCenterNet(nn.Module):
                  device="cuda", seed: int = 0):
         super().__init__()
         mcfg = config.model
-        if mcfg.backbone != "transFuser":
-            raise NotImplementedError(
-                f"backbone '{mcfg.backbone}' is not ported yet; only "
-                "transFuser is (ROADMAP.md queue 1: the other families)")
+        if mcfg.backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone '{mcfg.backbone}'; options: "
+                             f"{', '.join(BACKBONES)}")
         self.config = config
         self.dtype = dtype
         pp = mcfg.point_pillars
         lidar_ch = (pp.num_features[-1] if pp.use_point_pillars
                     else 2 * mcfg.lidar_seq_len)
         lidar_ch += int(mcfg.use_target_point_image)
-        self._model = TransfuserBackbone(config, lidar_ch)
+        self._model = BACKBONES[mcfg.backbone](config, lidar_ch)
         feats = mcfg.perception_output_features
         if mcfg.multitask:
             deconv = (mcfg.deconv_channel_num_1, mcfg.deconv_channel_num_2,
@@ -82,6 +96,8 @@ class LidarCenterNet(nn.Module):
                 target_point: torch.Tensor,
                 target_point_image: Optional[torch.Tensor] = None,
                 velocity: Optional[torch.Tensor] = None,
+                bev_points: Optional[torch.Tensor] = None,
+                cam_points: Optional[torch.Tensor] = None,
                 num_points: Optional[torch.Tensor] = None,
                 compute_aux: bool = False,
                 gen: Optional[torch.Generator] = None
@@ -89,7 +105,9 @@ class LidarCenterNet(nn.Module):
         """rgb (B,H,W,3) in [0,255]; lidar_bev (B,H,W,2) histogram, or
         under PointPillars the padded raw cloud (B,N,4) with its counts
         ``num_points`` (B,); target_point (B,2); target_point_image
-        (B,H,W,1); velocity (B,). Returns pred_wp (B,pred_len,2) and the
+        (B,H,W,1); velocity (B,); under geometric_fusion bev_points
+        (B,8,8,5,2) and cam_points (B,5,22,5,2) integer cell indices (the
+        anchor grids' sizes). Returns pred_wp (B,pred_len,2) and the
         seven NHWC head maps (``head_*``), all at-least-fp32; with
         ``compute_aux`` also pred_bev (B,bev_h,bev_w,classes),
         pred_semantic (B,H,W,num_class) and pred_depth (B,H,W), in the
@@ -109,8 +127,12 @@ class LidarCenterNet(nn.Module):
             if target_point_image is None:
                 raise ValueError("config uses the target-point image")
             lidar = torch.cat([lidar, to_nchw(target_point_image).to(dt)], 1)
-        pyramid, image_grid, fused = self._model(
-            to_nchw(rgb).to(dt), lidar, velocity, gen)
+        if cfg.model.backbone == "geometric_fusion":
+            pyramid, image_grid, fused = self._model(
+                to_nchw(rgb).to(dt), lidar, velocity, bev_points, cam_points)
+        else:
+            pyramid, image_grid, fused = self._model(
+                to_nchw(rgb).to(dt), lidar, velocity, gen)
         pred_wp = waypoint_rollout(
             self.join, self.decoder, self.output, fused, target_point,
             cfg.model.pred_len, cfg.model.gru_concat_target_point,
@@ -134,6 +156,8 @@ class LidarCenterNet(nn.Module):
                     target_point: torch.Tensor,
                     target_point_image: Optional[torch.Tensor] = None,
                     velocity: Optional[torch.Tensor] = None,
+                    bev_points: Optional[torch.Tensor] = None,
+                    cam_points: Optional[torch.Tensor] = None,
                     num_points: Optional[torch.Tensor] = None):
         """Inference path (model.py:685-731): waypoints + decoded top-k
         boxes, in eval mode whatever the module's mode. Returns (pred_wp
@@ -143,7 +167,7 @@ class LidarCenterNet(nn.Module):
         self.eval()
         try:
             out = self(rgb, lidar_bev, target_point, target_point_image,
-                       velocity, num_points)
+                       velocity, bev_points, cam_points, num_points)
         finally:
             self.train(was_training)
         cnc = self.config.model.centernet
@@ -161,7 +185,8 @@ def init_like_flax(model: LidarCenterNet, gen: torch.Generator) -> None:
     """Seeded random init with the JAX package's initializer families:
     lecun-normal (truncated) conv and dense kernels, zero biases, N(0,
     0.02) GPT linears, N(0, 0.001) CenterNet wh/offset branches, the
-    heatmap prior bias, identity BatchNorm and LayerNorm."""
+    heatmap prior bias, identity BatchNorm and LayerNorm, ConvNeXt layer
+    scales of 1e-6."""
 
     def lecun(w):
         fan_in = w[0].numel()
@@ -183,6 +208,8 @@ def init_like_flax(model: LidarCenterNet, gen: torch.Generator) -> None:
             nn.init.zeros_(m.bias_hh)
         elif isinstance(m, (BatchNorm1d, BatchNorm2d, LayerNorm)):
             m.reset_parameters()
+        elif isinstance(m, ConvNeXtBlock):
+            m.gamma.fill_(1e-6)
     for branch in ("wh", "offset"):
         for conv in getattr(model.head, f"{branch}_head")[::2]:
             nn.init.normal_(conv.weight, 0.0,

@@ -23,12 +23,21 @@ from .layers import Conv2d
 
 
 class ImageEncoder(nn.Module):
+    """Any trunk of ``encoders.make_encoder``, as the reference's
+    ``image_encoder.features``."""
+
     def __init__(self, arch: str):
         super().__init__()
         self.features = make_encoder(arch, 3)
 
 
 class LidarEncoder(nn.Module):
+    """Any trunk with the LiDAR's input channels, as the reference's
+    ``lidar_encoder._model``. The reference swaps in that first conv by
+    module surgery (re-registered as a top-level ``conv1`` on RegNetY and
+    ConvNeXt); the port builds it in place under the trunk's own name, and
+    ``train.jax_import.load_reference_checkpoint`` renames the alias."""
+
     def __init__(self, arch: str, in_channels: int):
         super().__init__()
         self._model = make_encoder(arch, in_channels)

@@ -33,8 +33,12 @@ Batch = Dict[str, torch.Tensor]
 def _model_inputs(batch: Batch):
     """(positional args, keyword args) of LidarCenterNet from a batch: the
     padded raw cloud and its counts under PointPillars, else the
-    histogram (trainer.py:34-52 there)."""
+    histogram; geometric_fusion's correspondences where the batch has
+    them (trainer.py:34-52 there)."""
     extra = {}
+    if "bev_points" in batch:
+        extra = dict(bev_points=batch["bev_points"],
+                     cam_points=batch["cam_points"])
     if "lidar_raw" in batch:
         lidar = batch["lidar_raw"]
         extra["num_points"] = batch["num_points"]
