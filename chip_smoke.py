@@ -27,6 +27,15 @@ Phases, one JSON line each:
                weights in fp32 on the card and on the CPU (plain path)
   agent        HybridAgent from a model dir (config snapshot + .pth) drives
                synthetic sensor frames: finite controls, p50 run_step
+  closed_loop  the port's evaluator (transfuser_torch.harness) drives the
+               agent (one flagship member from a config snapshot + .pth,
+               bf16) in process over a map-less 60 m route for 10 s of
+               sim time (200 ticks, 100 compute frames): route status
+               (any crashed status fails), driving score, route
+               completion, ticks, compute frames, run_step p50/p90 per
+               compute frame, and per tick the harness's own time, the
+               camera render, the LiDAR synthesis and the criteria; at
+               least 16 attention launches per compute frame and member
   family_forward_ego
                the other backbone families and trunks at full width
                (160x704 RGB, 256x256 LiDAR, seeded init, batch 1, bf16):
@@ -78,13 +87,13 @@ Phases, one JSON line each:
                epoch of the plain loader alone), and the PNG decode ms of a
                160x960 strip with libpng-style adaptive row filters
 
-The main path's launches are counted in the agent, family_forward_ego,
-family_agent, geometric_train, pillars_forward_ego, train and cli phases
-(counts set to 0 just before each run, read just after). The kernels
-phase also checks attention at the head dims of the ResNet and ConvNeXt
-GPT stages (D = 16, 32, 64, 128, 256), each row naming the configurations
-that give it; the attention summary in the kernels line stays over the
-flagship's four shapes.
+The main path's launches are counted in the agent, closed_loop,
+family_forward_ego, family_agent, geometric_train, pillars_forward_ego,
+train and cli phases (counts set to 0 just before each run, read just
+after). The kernels phase also checks attention at the head dims of the
+ResNet and ConvNeXt GPT stages (D = 16, 32, 64, 128, 256), each row
+naming the configurations that give it; the attention summary in the
+kernels line stays over the flagship's four shapes.
 Then a line with every kernel's numbers, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
 
@@ -617,6 +626,121 @@ def phase_agent(cfg, state):
          # so steer and throttle are not exercised here
          non_brake_frames=sum(c[2] < 0.5 for c in controls),
          last_control=controls[-1], pred_wp=agent.pred_wp.tolist())
+    return launches
+
+
+CLOSED_LOOP_ROUTE = """<?xml version='1.0' encoding='UTF-8'?>
+<routes><route id="0" town="Town01">
+  <waypoint x="0.0" y="0.0" z="0.0" pitch="0" roll="0" yaw="0"/>
+  <waypoint x="60.0" y="0.0" z="0.0" pitch="0" roll="0" yaw="0"/>
+</route></routes>"""
+
+
+def phase_closed_loop(cfg, state, game_seconds=10.0):
+    """The port's evaluator drives HybridAgent (one flagship member, bf16)
+    over a map-less 60 m route for `game_seconds` of sim time, in process.
+    Times: the agent's run_step per compute frame (the lazy camera and
+    LiDAR synthesis it reads included), the sim's sensor synthesis, the
+    criteria, and the harness's own time per tick (the scenario loop's
+    wall minus run_step: sensor feed, criteria, sim step)."""
+    import collections
+
+    from transfuser_torch.agents.hybrid_agent import HybridAgent
+    from transfuser_torch.harness import route_scenario
+    from transfuser_torch.harness.evaluator import Evaluator, EvaluatorArgs
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.sim import replay, sensors
+
+    spent = collections.defaultdict(float)
+
+    def timed(owner, name, key):
+        orig = getattr(owner, name)
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                spent[key] += time.perf_counter() - t0
+        setattr(owner, name, wrapper)
+        return owner, name, orig
+
+    class TimedAgent(HybridAgent):
+        def run_step(self, input_data, timestamp):
+            t0 = time.perf_counter()
+            control = super().run_step(input_data, timestamp)
+            ms = (time.perf_counter() - t0) * 1e3
+            spent["run_step"] += ms / 1e3
+            if self.step % self.config.controller.action_repeat == 0:
+                compute_ms.append(ms)
+            else:
+                repeat_ms.append(ms)
+            return control
+
+    compute_ms, repeat_ms, agents = [], [], []
+    patched = [timed(replay.ReplaySimulation, "render_camera", "render"),
+               timed(sensors, "synth_lidar", "lidar"),
+               timed(route_scenario.RouteScenario, "tick_criteria",
+                     "criteria")]
+    try:
+        with tempfile.TemporaryDirectory() as work:
+            model_dir = os.path.join(work, "model")
+            os.makedirs(model_dir)
+            cfg.save(os.path.join(model_dir, "config.json"))
+            torch.save(state, os.path.join(model_dir, "model_0.pth"))
+            routes = os.path.join(work, "routes.xml")
+            with open(routes, "w") as f:
+                f.write(CLOSED_LOOP_ROUTE)
+            results = os.path.join(work, "results.json")
+
+            def factory(route_config):
+                agents.append(TimedAgent(model_dir,
+                                         route_index=route_config.index))
+                return agents[-1]
+
+            torch.cuda.synchronize()
+            kernels.reset_launches()   # the main path's run starts here
+            t0 = time.perf_counter()
+            Evaluator(EvaluatorArgs(
+                routes=routes, agent_factory=factory, checkpoint=results,
+                max_game_seconds=game_seconds, timeout=600.0,
+                print_route_table=False)).run()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.launches)  # ... and ends here
+            with open(results) as f:
+                data = json.load(f)
+    finally:
+        for owner, name, orig in patched:
+            setattr(owner, name, orig)
+    (record,) = data["_checkpoint"]["records"]
+    status = record["status"]
+    if "crashed" in status.lower():
+        raise AssertionError(f"closed loop: route status {status!r}")
+    (agent,) = agents
+    expected = 16 * len(compute_ms) * agent.model_count
+    if launches["attention"] < expected or not compute_ms:
+        raise AssertionError(
+            f"closed loop made {launches['attention']} attention launches "
+            f"over {len(compute_ms)} compute frames, expected {expected}")
+    n = len(compute_ms) + len(repeat_ms)
+    loop_s = record["meta"]["duration_system"]  # the scenario loop's wall
+    emit("closed_loop", status=status,
+         driving_score=record["scores"]["score_composed"],
+         route_completion=record["scores"]["score_route"],
+         infraction_penalty=record["scores"]["score_penalty"],
+         infractions={k: len(v) for k, v in record["infractions"].items()
+                      if v},
+         duration_game=record["meta"]["duration_game"],
+         ticks=n, compute_frames=len(compute_ms),
+         members=agent.model_count,
+         run_step_p50_ms=float(np.percentile(compute_ms, 50)),
+         run_step_p90_ms=float(np.percentile(compute_ms, 90)),
+         repeat_frame_p50_ms=float(np.percentile(repeat_ms, 50)),
+         harness_ms_per_tick=(loop_s - spent["run_step"]) * 1e3 / n,
+         render_ms_per_tick=spent["render"] * 1e3 / n,
+         lidar_ms_per_tick=spent["lidar"] * 1e3 / n,
+         criteria_ms_per_tick=spent["criteria"] * 1e3 / n,
+         loop_s=loop_s, evaluator_s=wall, launches=launches)
     return launches
 
 
@@ -1351,6 +1475,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = dict.fromkeys(kernels.KERNELS, 0)
     for phase in (lambda: phase_agent(cfg, state),
+                  lambda: phase_closed_loop(cfg, state),
                   phase_family_forward_ego, phase_family_agents,
                   phase_geometric_train,
                   lambda: phase_pillars_forward_ego(pillar_config()),

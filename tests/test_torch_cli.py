@@ -1,8 +1,9 @@
 """The port's training CLI against the JAX package's: flags and the config
 they build, the refusal of what is not ported, the elastic restart, and a
 real run on the CPU over a written dataset whose export the port's agent
-then drives with (the port's counterpart of tests/test_lifecycle.py,
-without the closed-loop harness, which is not ported)."""
+then drives with (the port's counterpart of tests/test_lifecycle.py; its
+closed-loop half, an export driven through the port's harness CLI, is in
+tests/test_torch_closed_loop.py)."""
 
 import json
 import subprocess
