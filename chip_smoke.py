@@ -86,12 +86,32 @@ Phases, one JSON line each:
                upload, the echo factor, the host decode ms per sample (one
                epoch of the plain loader alone), and the PNG decode ms of a
                160x960 strip with libpng-style adaptive row filters
+  lifecycle    datagen -> train -> closed loop on the grid town
+               (grid:2x80x2) with 4 moving background vehicles, on two
+               route_gen junction routes through its signalised junction:
+               (a) `python -m transfuser_torch.harness.cli datagen` in a
+               subprocess for 25 s of sim time per route; it must not
+               initialise CUDA (checked at its exit), and prints frames
+               written, wall and sim seconds, game seconds per wall
+               second and the BEV raster's ms per saved frame; (b) the
+               flagship, bf16, through the training CLI in process for 2
+               epochs on that dataset (route 0 trains, route 1 is the
+               withheld Town02 validation): samples/s, the first and last
+               loss, attention launches per train step (0) and per eval
+               step (16); (c) its export driven by `python -m
+               transfuser_torch.harness.cli evaluate` in process for 10 s
+               of sim time on the first route: the closed_loop numbers
+               above, at least 16 attention launches per compute frame;
+               (d) the expert benchmark (transfuser_torch.tools.
+               expert_benchmark) on 2 routes with its default town and 20
+               vehicles: driving score and wall seconds. A crashed route
+               fails the phase
 
 The main path's launches are counted in the agent, closed_loop,
 family_forward_ego, family_agent, geometric_train, pillars_forward_ego,
-train and cli phases (counts set to 0 just before each run, read just
-after). The kernels phase also checks attention at the head dims of the
-ResNet and ConvNeXt GPT stages (D = 16, 32, 64, 128, 256), each row
+train, cli and lifecycle phases (counts set to 0 just before each run,
+read just after). The kernels phase also checks attention at the head
+dims of the ResNet and ConvNeXt GPT stages (D = 16, 32, 64, 128, 256), each row
 naming the configurations that give it; the attention summary in the
 kernels line stays over the flagship's four shapes.
 Then a line with every kernel's numbers, the card's name and power limit,
@@ -110,7 +130,9 @@ CUDA card and the rest of the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -118,6 +140,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -636,22 +659,20 @@ CLOSED_LOOP_ROUTE = """<?xml version='1.0' encoding='UTF-8'?>
 </route></routes>"""
 
 
-def phase_closed_loop(cfg, state, game_seconds=10.0):
-    """The port's evaluator drives HybridAgent (one flagship member, bf16)
-    over a map-less 60 m route for `game_seconds` of sim time, in process.
-    Times: the agent's run_step per compute frame (the lazy camera and
-    LiDAR synthesis it reads included), the sim's sensor synthesis, the
-    criteria, and the harness's own time per tick (the scenario loop's
-    wall minus run_step: sensor feed, criteria, sim step)."""
+@contextlib.contextmanager
+def closed_loop_probe():
+    """Times the closed-loop runs of HybridAgent inside the block: run_step
+    per compute frame and per repeat frame (the lazy camera and LiDAR
+    synthesis it reads included), the sim's camera render and LiDAR
+    synthesis, and the criteria; collects the agents that ran."""
     import collections
 
     from transfuser_torch.agents.hybrid_agent import HybridAgent
     from transfuser_torch.harness import route_scenario
-    from transfuser_torch.harness.evaluator import Evaluator, EvaluatorArgs
-    from transfuser_torch.ops import kernels
     from transfuser_torch.sim import replay, sensors
 
-    spent = collections.defaultdict(float)
+    probe = types.SimpleNamespace(spent=collections.defaultdict(float),
+                                  compute_ms=[], repeat_ms=[], agents=[])
 
     def timed(owner, name, key):
         orig = getattr(owner, name)
@@ -661,62 +682,52 @@ def phase_closed_loop(cfg, state, game_seconds=10.0):
             try:
                 return orig(*args, **kwargs)
             finally:
-                spent[key] += time.perf_counter() - t0
+                probe.spent[key] += time.perf_counter() - t0
         setattr(owner, name, wrapper)
         return owner, name, orig
 
-    class TimedAgent(HybridAgent):
-        def run_step(self, input_data, timestamp):
-            t0 = time.perf_counter()
-            control = super().run_step(input_data, timestamp)
-            ms = (time.perf_counter() - t0) * 1e3
-            spent["run_step"] += ms / 1e3
-            if self.step % self.config.controller.action_repeat == 0:
-                compute_ms.append(ms)
-            else:
-                repeat_ms.append(ms)
-            return control
+    run_step = HybridAgent.run_step
 
-    compute_ms, repeat_ms, agents = [], [], []
+    def timed_run_step(self, input_data, timestamp):
+        t0 = time.perf_counter()
+        control = run_step(self, input_data, timestamp)
+        ms = (time.perf_counter() - t0) * 1e3
+        probe.spent["run_step"] += ms / 1e3
+        if not any(a is self for a in probe.agents):
+            probe.agents.append(self)
+        if self.step % self.config.controller.action_repeat == 0:
+            probe.compute_ms.append(ms)
+        else:
+            probe.repeat_ms.append(ms)
+        return control
+
     patched = [timed(replay.ReplaySimulation, "render_camera", "render"),
                timed(sensors, "synth_lidar", "lidar"),
                timed(route_scenario.RouteScenario, "tick_criteria",
-                     "criteria")]
+                     "criteria"),
+               (HybridAgent, "run_step", run_step)]
+    HybridAgent.run_step = timed_run_step
     try:
-        with tempfile.TemporaryDirectory() as work:
-            model_dir = os.path.join(work, "model")
-            os.makedirs(model_dir)
-            cfg.save(os.path.join(model_dir, "config.json"))
-            torch.save(state, os.path.join(model_dir, "model_0.pth"))
-            routes = os.path.join(work, "routes.xml")
-            with open(routes, "w") as f:
-                f.write(CLOSED_LOOP_ROUTE)
-            results = os.path.join(work, "results.json")
-
-            def factory(route_config):
-                agents.append(TimedAgent(model_dir,
-                                         route_index=route_config.index))
-                return agents[-1]
-
-            torch.cuda.synchronize()
-            kernels.reset_launches()   # the main path's run starts here
-            t0 = time.perf_counter()
-            Evaluator(EvaluatorArgs(
-                routes=routes, agent_factory=factory, checkpoint=results,
-                max_game_seconds=game_seconds, timeout=600.0,
-                print_route_table=False)).run()
-            wall = time.perf_counter() - t0
-            launches = dict(kernels.launches)  # ... and ends here
-            with open(results) as f:
-                data = json.load(f)
+        yield probe
     finally:
         for owner, name, orig in patched:
             setattr(owner, name, orig)
-    (record,) = data["_checkpoint"]["records"]
+
+
+def closed_loop_fields(probe, results: str, launches: dict) -> dict:
+    """Checks one route's closed-loop run (no crashed status, at least 16
+    attention launches per compute frame and member) and gives its
+    numbers: route status, scores, infractions, run_step p50 / p90 per
+    compute frame, and per tick the harness's own time (the scenario
+    loop's wall minus run_step: sensor feed, criteria, sim step), the
+    camera render, the LiDAR synthesis and the criteria."""
+    with open(results) as f:
+        (record,) = json.load(f)["_checkpoint"]["records"]
     status = record["status"]
     if "crashed" in status.lower():
         raise AssertionError(f"closed loop: route status {status!r}")
-    (agent,) = agents
+    (agent,) = probe.agents
+    compute_ms, repeat_ms = probe.compute_ms, probe.repeat_ms
     expected = 16 * len(compute_ms) * agent.model_count
     if launches["attention"] < expected or not compute_ms:
         raise AssertionError(
@@ -724,23 +735,56 @@ def phase_closed_loop(cfg, state, game_seconds=10.0):
             f"over {len(compute_ms)} compute frames, expected {expected}")
     n = len(compute_ms) + len(repeat_ms)
     loop_s = record["meta"]["duration_system"]  # the scenario loop's wall
-    emit("closed_loop", status=status,
-         driving_score=record["scores"]["score_composed"],
-         route_completion=record["scores"]["score_route"],
-         infraction_penalty=record["scores"]["score_penalty"],
-         infractions={k: len(v) for k, v in record["infractions"].items()
-                      if v},
-         duration_game=record["meta"]["duration_game"],
-         ticks=n, compute_frames=len(compute_ms),
-         members=agent.model_count,
-         run_step_p50_ms=float(np.percentile(compute_ms, 50)),
-         run_step_p90_ms=float(np.percentile(compute_ms, 90)),
-         repeat_frame_p50_ms=float(np.percentile(repeat_ms, 50)),
-         harness_ms_per_tick=(loop_s - spent["run_step"]) * 1e3 / n,
-         render_ms_per_tick=spent["render"] * 1e3 / n,
-         lidar_ms_per_tick=spent["lidar"] * 1e3 / n,
-         criteria_ms_per_tick=spent["criteria"] * 1e3 / n,
-         loop_s=loop_s, evaluator_s=wall, launches=launches)
+    spent = probe.spent
+    return dict(
+        status=status, driving_score=record["scores"]["score_composed"],
+        route_completion=record["scores"]["score_route"],
+        infraction_penalty=record["scores"]["score_penalty"],
+        infractions={k: len(v) for k, v in record["infractions"].items()
+                     if v},
+        duration_game=record["meta"]["duration_game"],
+        ticks=n, compute_frames=len(compute_ms), members=agent.model_count,
+        run_step_p50_ms=float(np.percentile(compute_ms, 50)),
+        run_step_p90_ms=float(np.percentile(compute_ms, 90)),
+        repeat_frame_p50_ms=float(np.percentile(repeat_ms, 50)),
+        harness_ms_per_tick=(loop_s - spent["run_step"]) * 1e3 / n,
+        render_ms_per_tick=spent["render"] * 1e3 / n,
+        lidar_ms_per_tick=spent["lidar"] * 1e3 / n,
+        criteria_ms_per_tick=spent["criteria"] * 1e3 / n,
+        loop_s=loop_s, launches=launches)
+
+
+def phase_closed_loop(cfg, state, game_seconds=10.0):
+    """The port's evaluator drives HybridAgent (one flagship member, bf16)
+    over a map-less 60 m route for `game_seconds` of sim time, in
+    process."""
+    from transfuser_torch.agents.hybrid_agent import HybridAgent
+    from transfuser_torch.harness.evaluator import Evaluator, EvaluatorArgs
+    from transfuser_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory() as work, \
+            closed_loop_probe() as probe:
+        model_dir = os.path.join(work, "model")
+        os.makedirs(model_dir)
+        cfg.save(os.path.join(model_dir, "config.json"))
+        torch.save(state, os.path.join(model_dir, "model_0.pth"))
+        routes = os.path.join(work, "routes.xml")
+        with open(routes, "w") as f:
+            f.write(CLOSED_LOOP_ROUTE)
+        results = os.path.join(work, "results.json")
+        torch.cuda.synchronize()
+        kernels.reset_launches()   # the main path's run starts here
+        t0 = time.perf_counter()
+        Evaluator(EvaluatorArgs(
+            routes=routes, checkpoint=results,
+            agent_factory=lambda c: HybridAgent(model_dir,
+                                                route_index=c.index),
+            max_game_seconds=game_seconds, timeout=600.0,
+            print_route_table=False)).run()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.launches)  # ... and ends here
+        fields = closed_loop_fields(probe, results, launches)
+    emit("closed_loop", **fields, evaluator_s=wall)
     return launches
 
 
@@ -1218,26 +1262,13 @@ def check_history(run_dir: str, epochs: list) -> list:
     return rows
 
 
-def phase_cli():
-    """The training CLI on a CARLA-layout dataset written at full size:
-    two runs in process (the flagship through the echo cache, PointPillars
-    through the device cache), a resume of the second in a fresh process
-    on the plain loader, and the agent on the first run's export."""
+def count_step_launches(per_step: dict):
+    """Wraps the trainer's step factories so that each train and eval step
+    appends its kernel launches to per_step["train"] / per_step["eval"];
+    returns the undo."""
     import transfuser_torch.train.trainer as trainer_mod
-    from transfuser_torch.agents.hybrid_agent import HybridAgent
-    from transfuser_torch.config import GlobalConfig
-    from transfuser_torch.data import png
-    from transfuser_torch.data.dataset import CarlaDataset
-    from transfuser_torch.data.loader import PrefetchLoader, pinned_put
-    from transfuser_torch.data.synthetic import write_route
     from transfuser_torch.ops import kernels
-    from transfuser_torch.train import cli
-    from transfuser_torch.train.profiling import StepTimer
 
-    t_phase = time.perf_counter()
-    out = {}
-    # launches per call of the trainer's train and eval steps
-    per_step = {"train": [], "eval": []}
     made = (trainer_mod.make_train_step, trainer_mod.make_eval_step)
 
     def counting(kind, make):
@@ -1255,6 +1286,32 @@ def phase_cli():
 
     trainer_mod.make_train_step = counting("train", made[0])
     trainer_mod.make_eval_step = counting("eval", made[1])
+
+    def undo():
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = made
+    return undo
+
+
+def phase_cli():
+    """The training CLI on a CARLA-layout dataset written at full size:
+    two runs in process (the flagship through the echo cache, PointPillars
+    through the device cache), a resume of the second in a fresh process
+    on the plain loader, and the agent on the first run's export."""
+    from transfuser_torch.agents.hybrid_agent import HybridAgent
+    from transfuser_torch.config import GlobalConfig
+    from transfuser_torch.data import png
+    from transfuser_torch.data.dataset import CarlaDataset
+    from transfuser_torch.data.loader import PrefetchLoader, pinned_put
+    from transfuser_torch.data.synthetic import write_route
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.train import cli
+    from transfuser_torch.train.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    out = {}
+    # launches per call of the trainer's train and eval steps
+    per_step = {"train": [], "eval": []}
+    undo = count_step_launches(per_step)
     launches = dict.fromkeys(kernels.KERNELS, 0)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
@@ -1425,10 +1482,239 @@ def phase_cli():
             rows_per_filter=filters,
             filter_none_ms=(time.perf_counter() - t0) * 1e3)
     finally:
-        trainer_mod.make_train_step, trainer_mod.make_eval_step = made
+        undo()
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     emit("cli", **out)
+    return launches
+
+
+LIFECYCLE_TOWN = "grid:2x80x2"
+LIFECYCLE_BACKGROUND = 4
+# Runs `python -m transfuser_torch.harness.cli` (argv after -c) and, at
+# exit, reports the BEV rasteriser's calls and seconds and whether the
+# process imported torch or initialised CUDA.
+DATAGEN_CHILD = """
+import atexit, json, runpy, sys, time
+from transfuser_torch.data import bev_raster
+
+bev = {"bev_frames": 0, "bev_s": 0.0}
+render = bev_raster.BevRasterizer.render
+
+
+def timed_render(self, *args, **kwargs):
+    t0 = time.perf_counter()
+    try:
+        return render(self, *args, **kwargs)
+    finally:
+        bev["bev_frames"] += 1
+        bev["bev_s"] += time.perf_counter() - t0
+
+
+def report():
+    torch = sys.modules.get("torch")
+    print("DATAGEN_CHILD " + json.dumps(dict(
+        bev, torch_imported=torch is not None,
+        cuda_initialized=bool(torch is not None
+                              and torch.cuda.is_initialized()))),
+          flush=True)
+
+
+bev_raster.BevRasterizer.render = timed_render
+atexit.register(report)
+runpy.run_module("transfuser_torch.harness.cli", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def lifecycle_routes(path: str, first: str) -> list:
+    """Two generated routes of the grid town through its signalised
+    junction (80, 80), straight on and left (route_gen's junction routes,
+    thinned to keypoints as the expert benchmark thins them), into
+    `path`; the first alone into `first`. -> the routes' lengths in m."""
+    from transfuser_torch.harness.evaluator import build_town_map
+    from transfuser_torch.tools.route_gen import (TownGraph,
+                                                  junction_routes,
+                                                  routes_to_xml)
+
+    graph = TownGraph.from_town_map(build_town_map(LIFECYCLE_TOWN))
+    routes = [next(r for r in junction_routes(graph, turn=turn)
+                   if any(math.hypot(x - 80.0, y - 80.0) < 12.0
+                          for x, y, _ in r))
+              for turn in ("straight", "left")]
+    routes_to_xml([r[::5] + [r[-1]] for r in routes], graph.name, path)
+    routes_to_xml([routes[0][::5] + [routes[0][-1]]], graph.name, first)
+    return [sum(math.hypot(b[0] - a[0], b[1] - a[1])
+                for a, b in zip(r, r[1:])) for r in routes]
+
+
+def route_records(results: str) -> list:
+    """The records of a results JSON; raises on a crashed route."""
+    with open(results) as f:
+        records = json.load(f)["_checkpoint"]["records"]
+    for r in records:
+        if "crashed" in r["status"].lower():
+            raise AssertionError(f"{results}: route status {r['status']!r}")
+    return records
+
+
+def phase_lifecycle(datagen_seconds=25.0, drive_seconds=10.0):
+    """datagen -> train -> closed loop, and the expert benchmark, on the
+    grid town with moving traffic: (a) ``python -m
+    transfuser_torch.harness.cli datagen`` in a subprocess that must not
+    initialise CUDA; (b) the flagship, bf16, trained through the training
+    CLI in process for 2 epochs on that dataset; (c) its export driven by
+    ``transfuser_torch.harness.cli evaluate`` in process; (d) the expert
+    benchmark on 2 routes."""
+    from transfuser_torch.harness import cli as harness_cli
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.tools.expert_benchmark import run_expert_benchmark
+    from transfuser_torch.train import cli as train_cli
+
+    t_phase = time.perf_counter()
+    out = {}
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lifecycle_")
+    try:
+        routes = os.path.join(tmp, "routes.xml")
+        first = os.path.join(tmp, "route0.xml")
+        lengths = lifecycle_routes(routes, first)
+
+        # (a) the expert writes the dataset, without CUDA
+        save = os.path.join(tmp, "datagen")
+        results = os.path.join(tmp, "datagen.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", DATAGEN_CHILD, "datagen", "--routes",
+             routes, "--save-path", save, "--checkpoint", results,
+             "--town-map", LIFECYCLE_TOWN, "--background-vehicles",
+             str(LIFECYCLE_BACKGROUND), "--max-game-seconds",
+             str(datagen_seconds)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"datagen failed:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        (child,) = [json.loads(line.split(" ", 1)[1])
+                    for line in proc.stdout.splitlines()
+                    if line.startswith("DATAGEN_CHILD ")]
+        if child["cuda_initialized"]:
+            raise AssertionError("the datagen process initialised CUDA")
+        records = route_records(results)
+        frames = [len(os.listdir(os.path.join(save, f"route{i}",
+                                              "measurements")))
+                  for i in range(2)]
+        if child["bev_frames"] != sum(frames) or min(frames) < 30:
+            raise AssertionError(f"datagen saved {frames} frames, "
+                                 f"{child['bev_frames']} BEV renders")
+        game = sum(r["meta"]["duration_game"] for r in records)
+        loop = sum(r["meta"]["duration_system"] for r in records)
+        out["datagen"] = dict(
+            route_lengths_m=lengths, frames=frames, wall_s=wall,
+            game_s=game, loop_s=loop, game_s_per_wall_s=game / wall,
+            game_s_per_loop_s=game / loop,
+            bev_ms_per_saved_frame=child["bev_s"] * 1e3 / sum(frames),
+            status=[r["status"] for r in records],
+            driving_score=[r["scores"]["score_composed"] for r in records],
+            torch_imported=child["torch_imported"],
+            cuda_initialized=child["cuda_initialized"])
+        # the training CLI's town layout: route 0 trains, route 1 is the
+        # withheld Town02 validation
+        root = os.path.join(tmp, "data")
+        os.makedirs(os.path.join(root, "grid"))
+        for i, name in enumerate(("Town01_route0", "Town02_route1")):
+            os.rename(os.path.join(save, f"route{i}"),
+                      os.path.join(root, "grid", name))
+
+        # (b) the flagship, bf16, trained on the expert's data
+        logs = os.path.join(tmp, "log")
+        per_step = {"train": [], "eval": []}
+        undo = count_step_launches(per_step)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()   # the main path's run starts here
+            t0 = time.perf_counter()
+            summary = train_cli.main([
+                "--root_dir", root, "--logdir", logs, "--id", "expert",
+                "--setting", "02_05_withheld", "--epochs", "2",
+                "--batch_size", "12", "--val_every", "1",
+                "--num_workers", "4"])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            train_launches = dict(kernels.launches)  # ... and ends here
+        finally:
+            undo()
+        for k, v in train_launches.items():
+            launches[k] += v
+        if not per_step["train"] or not per_step["eval"]:
+            raise AssertionError(f"training ran {len(per_step['train'])} "
+                                 f"train and {len(per_step['eval'])} eval "
+                                 "steps")
+        for kind, want in (("train", 0), ("eval", 16)):
+            for got in per_step[kind]:
+                if got["attention"] != want:
+                    raise AssertionError(f"{kind} step launches {got}, "
+                                         f"expected {want} attention")
+        run_dir = os.path.join(logs, "expert")
+        rows = check_history(run_dir, [0, 1])
+        check_export(run_dir, summary["export_epoch"])
+        for path in ("1", "2"):  # the agent needs the export only
+            shutil.rmtree(os.path.join(run_dir, path))
+        loss = [r["loss_total"] for r in rows]
+        out["train"] = dict(
+            seconds=seconds, train_steps=len(per_step["train"]),
+            eval_steps=len(per_step["eval"]),
+            samples_per_s=[r["samples_per_sec"] for r in rows],
+            loss_first=loss[0], loss_last=loss[-1], loss_total=loss,
+            val_ade=[r["val_ade"] for r in rows],
+            eval_step_attention_launches=[
+                got["attention"] for got in per_step["eval"]],
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=train_launches)
+        torch.cuda.empty_cache()
+
+        # (c) the trained agent on the grid town with traffic
+        results = os.path.join(tmp, "drive.json")
+        with closed_loop_probe() as probe:
+            torch.cuda.synchronize()
+            kernels.reset_launches()   # the main path's run starts here
+            t0 = time.perf_counter()
+            harness_cli.main([
+                "evaluate", "--routes", first, "--agent", "hybrid",
+                "--agent-config", run_dir, "--checkpoint", results,
+                "--town-map", LIFECYCLE_TOWN, "--background-vehicles",
+                str(LIFECYCLE_BACKGROUND), "--max-game-seconds",
+                str(drive_seconds), "--timeout", "600"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            drive_launches = dict(kernels.launches)  # ... and ends here
+            out["closed_loop"] = dict(
+                closed_loop_fields(probe, results, drive_launches),
+                evaluator_s=wall)
+        for k, v in drive_launches.items():
+            launches[k] += v
+
+        # (d) the expert benchmark: 2 routes, the tool's town and traffic
+        work = os.path.join(tmp, "expert")
+        os.makedirs(work)
+        t0 = time.perf_counter()
+        scores = run_expert_benchmark(os.path.join(work, "expert.json"),
+                                      n_routes=2, workdir=work)
+        records = route_records(os.path.join(work, "expert.json"))
+        out["expert_benchmark"] = dict(
+            wall_s=time.perf_counter() - t0, n_routes=scores["n_routes"],
+            background_vehicles=scores["background_vehicles"],
+            driving_score=scores["score_composed"],
+            route_completion=scores["score_route"],
+            infraction_penalty=scores["score_penalty"],
+            status=[r["status"] for r in records],
+            game_s=sum(r["meta"]["duration_game"] for r in records))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("lifecycle", **out)
     return launches
 
 
@@ -1480,7 +1766,7 @@ def main() -> int:
                   phase_geometric_train,
                   lambda: phase_pillars_forward_ego(pillar_config()),
                   lambda: phase_train(pillar_config(), profile=profile),
-                  phase_cli):
+                  phase_cli, phase_lifecycle):
         for name, count in phase().items():
             launches[name] += count
         torch.cuda.empty_cache()

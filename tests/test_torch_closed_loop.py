@@ -9,9 +9,10 @@ results JSON: the harnesses agree exactly, the agents within bf16
 rounding, and the two trajectories cannot drift apart.
 
 CLI: the flags of ``python -m transfuser_torch.harness.cli`` are the JAX
-CLI's plus ``--device``; it refuses a missing card and what is not ported
-yet; and it drives the export of the port's training CLI to a results
-JSON (the closed-loop half of tests/test_lifecycle.py).
+CLI's plus ``--device``; it refuses a missing card; ``datagen`` and the
+expert and data agents give the JAX CLI's results JSON; and it drives the
+export of the port's training CLI to a results JSON (the closed-loop half
+of tests/test_lifecycle.py).
 """
 
 import dataclasses
@@ -54,6 +55,13 @@ ROUTE_XML = """<?xml version='1.0' encoding='UTF-8'?>
 <routes><route id="0" town="Town01">
   <waypoint x="0.0" y="0.0" z="0.0" pitch="0" roll="0" yaw="0"/>
   <waypoint x="40.0" y="0.0" z="0.0" pitch="0" roll="0" yaw="0"/>
+</route></routes>"""
+
+# the y = 80 road of the grid town, into its signalised junction
+GRID_ROUTE_XML = """<?xml version='1.0' encoding='UTF-8'?>
+<routes><route id="0" town="Town01">
+  <waypoint x="60.0" y="78.25" z="0.0" pitch="0" roll="0" yaw="0"/>
+  <waypoint x="110.0" y="78.25" z="0.0" pitch="0" roll="0" yaw="0"/>
 </route></routes>"""
 
 
@@ -210,10 +218,33 @@ def test_cuda_without_a_card_is_refused(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv", [
     ["datagen"], ["evaluate", "--agent", "autopilot"],
     ["evaluate", "--agent", "data"]], ids=["datagen", "autopilot", "data"])
-def test_unported_commands_and_agents_are_refused(tmp_path, argv):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        cli.main(argv + ["--routes", str(tmp_path / "r.xml"),
-                         "--device", "cpu"])
+def test_expert_commands_equal_jax_cli(tmp_path, monkeypatch, argv):
+    """``datagen`` and the expert / data agents through each package's CLI
+    on a short grid-town route with traffic: equal results JSON, and
+    datagen writes the same dataset files."""
+    routes = tmp_path / "routes.xml"
+    routes.write_text(GRID_ROUTE_XML)
+    results, saved = {}, {}
+    for name, module, sensors in (("jax", jax_cli, jax_sensors),
+                                  ("port", cli, port_sensors)):
+        monkeypatch.setattr(sensors, "_NOISE_POOLS", {})
+        monkeypatch.setenv("SAVE_PATH", "")
+        out = tmp_path / name
+        extra = ["--device", "cpu"] if name == "port" else []
+        assert module.main(argv + [
+            "--routes", str(routes), "--checkpoint", str(out) + ".json",
+            "--save-path", str(out), "--max-game-seconds", "3",
+            "--town-map", "grid", "--background-vehicles", "1"] + extra) == 0
+        results[name] = json.loads((tmp_path / f"{name}.json").read_text())
+        saved[name] = sorted(str(p.relative_to(out)) for p in out.rglob("*")
+                             if p.is_file())
+    assert strip_wall_clock(results["port"]) == \
+        strip_wall_clock(results["jax"])
+    (record,) = results["port"]["_checkpoint"]["records"]
+    assert "crashed" not in record["status"].lower(), record["status"]
+    assert saved["port"] == saved["jax"]
+    # only the datagen command writes a dataset (SAVE_PATH from --save-path)
+    assert bool(saved["port"]) == (argv[0] == "datagen")
 
 
 def test_cli_drives_a_training_cli_export(tmp_path):

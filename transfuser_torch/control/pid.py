@@ -1,4 +1,4 @@
-"""(Copy of transfuser_tpu/control/pid.py without the expert's save/load.)
+"""(Copy of transfuser_tpu/control/pid.py.)
 
 PID controller + waypoint-to-control law.
 
@@ -9,6 +9,7 @@ on the accelerator.
 
 from __future__ import annotations
 
+import math
 from collections import deque
 from typing import Tuple
 
@@ -26,7 +27,12 @@ class PIDController:
         self.k_i = k_i
         self.k_d = k_d
         self.window: deque = deque([0.0] * n, maxlen=n)
-        self._sum = 0.0  # running window sum
+        self._saved: deque = deque(self.window, maxlen=n)
+        # Running window sum: np.mean over the deque every step was 16 s
+        # of a benchmark route (the expert steps 4 PIDs per forecast
+        # frame). load() re-derives it exactly (math.fsum), so drift
+        # cannot accumulate across the expert's save/load cycles.
+        self._sum = 0.0
 
     def step(self, error: float) -> float:
         w = self.window
@@ -41,6 +47,14 @@ class PIDController:
             integral = 0.0
             derivative = 0.0
         return self.k_p * error + self.k_i * integral + self.k_d * derivative
+
+    # State save/load used by the expert (nav_planner.py:61-65).
+    def save(self) -> None:
+        self._saved = deque(self.window, maxlen=self.window.maxlen)
+
+    def load(self) -> None:
+        self.window = deque(self._saved, maxlen=self._saved.maxlen)
+        self._sum = math.fsum(self.window)
 
 
 def control_pid(waypoints: np.ndarray, speed: float,

@@ -1,4 +1,4 @@
-"""(Copy of transfuser_tpu/control/route_planner.py without the expert's save/load.)
+"""(Copy of transfuser_tpu/control/route_planner.py.)
 
 GPS-space route planner with min/max-distance pop window.
 
@@ -22,10 +22,12 @@ GPS_CARLA_SCALE = np.array([111324.60662786, 111319.490945])
 class RoutePlanner:
     def __init__(self, min_distance: float, max_distance: float):
         self.route: Deque[Tuple[np.ndarray, object]] = deque()
+        self.saved_route: Deque = deque()
         # Parallel (x, y) python-float view of self.route, popped in
         # lockstep: run_step's scan runs once per expert forecast step
         # (~400k/route) and float(ndarray[i]) conversions dominated it.
         self._xy: Deque[Tuple[float, float]] = deque()
+        self._saved_xy: Deque = deque()
         self.min_distance = min_distance
         self.max_distance = max_distance
         self.is_last = False
@@ -82,3 +84,19 @@ class RoutePlanner:
                 self.route.popleft()
                 self._xy.popleft()
         return self.route
+
+    def save(self) -> None:
+        # Entries are immutable (ndarray, RoadOption) tuples and the
+        # arrays are never written in place (set_route builds fresh ones,
+        # run_step only pops) — a C-speed shallow deque copy is therefore
+        # equivalent to the reference's deepcopy (nav_planner.py save/
+        # load), which was 33% of expert-benchmark wall-clock.
+        self.saved_route = deque(self.route)
+        self._saved_xy = deque(self._xy)
+
+    def load(self) -> None:
+        # Copy again so pops on the restored route never mutate the
+        # saved snapshot (deepcopy semantics, both directions).
+        self.route = deque(self.saved_route)
+        self._xy = deque(self._saved_xy)
+        self.is_last = False

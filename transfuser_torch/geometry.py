@@ -1,10 +1,11 @@
-"""(Copy of transfuser_tpu/geometry.py: the parts the driving agent and the
-data reader use.)
+"""(Copy of transfuser_tpu/geometry.py: the parts the agents and the data
+reader use.)
 
-Shared geometry: rig transforms, OBBs, convex IoU, bicycle model.
+Shared geometry: rig transforms, angles, OBBs, convex IoU, bicycle model.
 
 Pure numpy (host-side). Formulas match the reference exactly:
   * lidar<->vehicle<->BEV-image transforms: team_code_transfuser/utils.py:3-37
+  * angle normalization: team_code_transfuser/utils.py:39-48
   * OBB/SAT intersection: submission_agent.py:506-537
   * convex polygon IoU for ensemble NMS: submission_agent.py:491-497
   * kinematic bicycle model (World-on-Rails constants):
@@ -12,6 +13,8 @@ Pure numpy (host-side). Formulas match the reference exactly:
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
@@ -52,7 +55,26 @@ def lidar_to_bevimage() -> np.ndarray:
 
 
 # --------------------------------------------------------------------------
-# Oriented bounding boxes (2D, for the latentTF safety check)
+# Angles
+
+
+def normalize_angle(x: float) -> float:
+    """Wrap into [-pi, pi) (utils.py:39-43)."""
+    x = x % (2 * np.pi)
+    if x > np.pi:
+        x -= 2 * np.pi
+    return x
+
+
+def normalize_angle_degree(x: float) -> float:
+    x = x % 360.0
+    if x > 180.0:
+        x -= 360.0
+    return x
+
+
+# --------------------------------------------------------------------------
+# Oriented bounding boxes (2D, for safety checks / expert forecasting)
 
 
 def rotation2d(rad: float) -> np.ndarray:
@@ -180,3 +202,18 @@ class EgoModel:
         next_spds = spds + accel * self.dt
         next_spds = next_spds * (next_spds > 0.0)
         return next_locs, next_yaws, next_spds
+
+    def forward_scalar(self, x: float, y: float, yaw: float, spd: float,
+                       steer: float, throt: float, brake: float):
+        """Scalar twin of forward() (same float64 math, ~10x less
+        overhead) for the sequential single-vehicle forecast loops —
+        forward() ran 1.5M times per benchmark route, mostly on
+        (1,)-shaped arrays. Returns (x, y, yaw, spd)."""
+        wheel = self.steer_gain * steer
+        beta = math.atan(self._beta_gain * math.tan(wheel))
+        nx = x + spd * math.cos(yaw + beta) * self.dt
+        ny = y + spd * math.sin(yaw + beta) * self.dt
+        nyaw = yaw + spd / self.rear_wb * math.sin(beta) * self.dt
+        accel = self.brake_accel if int(brake) else self.throt_accel * throt
+        nspd = spd + accel * self.dt
+        return nx, ny, nyaw, (nspd if nspd > 0.0 else 0.0)

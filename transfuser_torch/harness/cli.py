@@ -1,20 +1,25 @@
-"""Evaluation CLI (counterpart of transfuser_tpu/harness/cli.py).
+"""Evaluation + data-generation CLIs (counterpart of
+transfuser_tpu/harness/cli.py).
 
 Replaces the reference driver scripts (leaderboard/scripts/
-local_evaluation.sh and leaderboard_evaluator_local.py:421-476): the same
-env vars are honored (ROUTES, SCENARIOS, CHECKPOINT_ENDPOINT, TEAM_CONFIG,
-SAVE_PATH, RESUME, REPETITIONS, TOWN_MAP) with argparse overrides on top.
+local_evaluation.sh, datagen.sh and leaderboard_evaluator_local.py:421-476):
+the same env vars are honored (ROUTES, SCENARIOS, CHECKPOINT_ENDPOINT,
+TEAM_CONFIG, SAVE_PATH, RESUME, REPETITIONS, TOWN_MAP) with argparse
+overrides on top.
 
     python -m transfuser_torch.harness.cli evaluate --routes longest6.xml \
         --agent hybrid --agent-config log/transfuser
+    python -m transfuser_torch.harness.cli datagen --routes routes.xml \
+        --save-path data/
 
 Every flag of the JAX CLI, with its default, plus ``--device`` (``cuda``
 unless the caller asks for ``cpu``). Only the ``hybrid`` agent receives
-the device; ``npc`` and ``dummy`` never touch CUDA. ``--device cuda``
-with the hybrid agent and no CUDA device exits with an error rather than
-running on the CPU. The ``datagen`` command and the ``autopilot`` /
-``data`` agents are not ported yet (ROADMAP.md Queue 1 item 2) and raise
-NotImplementedError.
+the device; the expert (``autopilot``), the data agent (``data``), ``npc``
+and ``dummy`` are numpy-only and never touch CUDA. ``--device cuda`` with
+the hybrid agent and no CUDA device exits with an error rather than
+running on the CPU. ``datagen`` runs the evaluator with the datagen sensor
+profile (no LiDAR dropoff, the extra cameras allowed) and the data agent
+writing ``SAVE_PATH/route<i>``.
 """
 
 from __future__ import annotations
@@ -25,9 +30,6 @@ import os
 import sys
 from typing import Optional
 
-NOT_PORTED = ("is not ported yet (ROADMAP.md Queue 1 item 2: the expert, "
-              "datagen and the other agents behind the port's harness)")
-
 
 def _agent_factory(kind: str, conf: str, device: str):
     def factory(route_config):
@@ -35,6 +37,12 @@ def _agent_factory(kind: str, conf: str, device: str):
             from ..agents.hybrid_agent import HybridAgent
             return HybridAgent(conf, route_index=route_config.index,
                                device=device)
+        if kind == "autopilot":
+            from ..agents.autopilot import AutoPilot
+            return AutoPilot(conf, route_index=route_config.index)
+        if kind == "data":
+            from ..agents.data_agent import DataAgent
+            return DataAgent(conf, route_index=route_config.index)
         if kind == "npc":
             from ..agents.demo_agents import NpcAgent
             return NpcAgent(conf)
@@ -87,10 +95,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.command == "datagen":
-        raise NotImplementedError(f"the datagen command {NOT_PORTED}")
-    if args.agent in ("autopilot", "data"):
-        raise NotImplementedError(f"--agent {args.agent} {NOT_PORTED}")
     if not args.routes:
         print("--routes (or env ROUTES) is required", file=sys.stderr)
         return 2
@@ -100,6 +104,8 @@ def main(argv: Optional[list] = None) -> int:
                 not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device here; pass "
                              "--device cpu to drive on the CPU")
+    if args.command == "datagen" and args.save_path:
+        os.environ["SAVE_PATH"] = args.save_path
 
     from .evaluator import Evaluator, EvaluatorArgs
     ev = Evaluator(EvaluatorArgs(
@@ -110,7 +116,8 @@ def main(argv: Optional[list] = None) -> int:
         repetitions=args.repetitions, timeout=args.timeout,
         max_game_seconds=args.max_game_seconds,
         background_vehicles=args.background_vehicles,
-        town_map=args.town_map))
+        town_map=args.town_map,
+        datagen=(args.command == "datagen")))
     result = ev.run()
     print(json.dumps(result.get("scores", result), indent=2))
     return 0

@@ -1,4 +1,4 @@
-"""(Copy of transfuser_tpu/harness/evaluator.py without datagen and without OpenCV.)
+"""(Copy of transfuser_tpu/harness/evaluator.py without OpenCV.)
 
 Top-level route evaluator: index -> run -> score -> checkpoint.
 
@@ -129,6 +129,7 @@ class EvaluatorArgs:
     # network (sim/town_map.py) enabling moving traffic + map-true
     # criteria; None keeps the map-less legacy backend.
     town_map: Optional[str] = None
+    datagen: bool = False
     # print the per-route ANSI criteria table (result_writer.py:19-116)
     print_route_table: bool = True
     # comma-separated route ids/names to run (None = all)
@@ -196,8 +197,12 @@ class Evaluator:
             scenario = RouteScenario(
                 config, fps=args.fps,
                 background_vehicles=args.background_vehicles,
-                town_map=build_town_map(args.town_map))
+                town_map=build_town_map(args.town_map),
+                datagen=args.datagen)
             agent = args.agent_factory(config)
+            if hasattr(agent, "sim"):
+                # privileged agents (expert/datagen) get world access
+                agent.sim = scenario.sim
             for spec in agent.sensors():
                 agent.sensor_interface.register_sensor(
                     spec["id"], spec["type"])

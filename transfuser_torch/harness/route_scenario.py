@@ -1,4 +1,4 @@
-"""(Copy of transfuser_tpu/harness/route_scenario.py without the datagen profile.)
+"""(Copy of transfuser_tpu/harness/route_scenario.py.)
 
 Route scenario: ego route + criteria + scenario actor placement.
 
@@ -32,6 +32,7 @@ class RouteScenario:
     fps: int = 20
     background_vehicles: int = 0
     seed: int = 0
+    datagen: bool = False  # datagen profile: no lidar dropoff (wrapper :125)
     # Optional sim.town_map.TownMap. With a map, background traffic DRIVES
     # (TrafficManager car-following, red-light compliance — the moving-
     # traffic semantics of route_scenario_local.py:449-467), traffic
@@ -68,13 +69,15 @@ class RouteScenario:
         from .scenarios import build_behaviors
         self.behaviors = build_behaviors(self.config.scenario_configs,
                                          self.seed)
-        from .agent_wrapper import GNSS_NOISE, IMU_NOISE, LIDAR_EVAL
+        from .agent_wrapper import (GNSS_NOISE, IMU_NOISE,
+                                    pinned_lidar_attributes)
+        lidar_attrs = pinned_lidar_attributes(self.datagen)
         actors, light_actors = self._build_signal_actors()
         self.sim = ReplaySimulation(
             [tf for tf, _ in self.dense_route], fps=self.fps,
             actors=actors, seed=self.seed,
             gnss_noise=GNSS_NOISE, imu_noise=IMU_NOISE,
-            lidar_dropoff=LIDAR_EVAL["dropoff_general_rate"],
+            lidar_dropoff=lidar_attrs.get("dropoff_general_rate", 0.0),
             town_map=self.town_map)
         self._light_actors = light_actors
         if self.town_map is not None:

@@ -1,5 +1,5 @@
 """(Copy of transfuser_tpu/sim/replay.py without recorded-frame replay and
-the expert's and data agent's hooks: junction query, weather shuffle.)
+the unused ``junction_fn`` hook of the map-less junction query.)
 
 Hermetic simulation backend.
 
@@ -116,12 +116,23 @@ class ReplaySimulation:
         # sensors mounted at one pose: {pose_key: (frame, sem, depth)}
         self._pose_render_cache: Dict[Tuple, Tuple[int, Any, Any]] = {}
         self._camera_objs: Dict[Tuple, Any] = {}
-        # weather state applied by the sensor synthesis (the DataAgent's
-        # shuffle, data_agent.py:222-242, is not ported: it stays fixed)
+        # weather state applied by the sensor synthesis (DataAgent's
+        # shuffle_weather, data_agent.py:222-242)
         self.weather = {"weather": "Clear", "daytime": "Noon"}
         # Optional sim.traffic.TrafficManager: stepped inside tick() so
         # background vehicles + light phases advance with the world.
         self.traffic = None
+
+    def set_weather(self, setting: Dict[str, str]) -> None:
+        self.weather = dict(setting)
+        self._camera_cache.clear()  # re-render under the new conditions
+        self._pose_render_cache.clear()
+
+    def is_junction(self, location: Location) -> bool:
+        """Map query stand-in (the live adapter asks the OpenDRIVE map)."""
+        if self.town_map is not None:
+            return bool(self.town_map.is_junction(location.x, location.y))
+        return False
 
     # -------------------------------------------------------------- control
     def apply_control(self, control: VehicleControl) -> None:
