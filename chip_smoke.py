@@ -135,6 +135,7 @@ import json
 import math
 import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -150,6 +151,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 ATTN_MAIN_SHAPES = [(1, 174, 4, d) for d in (18, 54, 144, 378)]
 ATTN_EXTRA_SHAPES = [(2, 174, 4, 18), (1, 200, 4, 40)]
+# the flagship's GPT under --mesh_model 2: 2 of the 4 heads per rank, at
+# the parallel phase's global batch of 4
+ATTN_TP_SHAPES = {(4, 174, 2, d): "flagship eval step at --mesh_model 2, "
+                  "per rank" for d in (18, 54, 144, 378)}
 # the GPT stages' head dims (stage width / 4 heads) of the other trunks
 ATTN_FAMILY_SHAPES = {
     (1, 174, 4, 16): "transFuser resnet34/resnet18 stage 1",
@@ -401,7 +406,7 @@ def phase_kernels():
     max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (ATTN_MAIN_SHAPES + ATTN_EXTRA_SHAPES +
-                      list(ATTN_FAMILY_SHAPES)):
+                      list(ATTN_FAMILY_SHAPES) + list(ATTN_TP_SHAPES)):
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype) for _ in range(3))
             got = attention(q, k, v)
@@ -433,7 +438,8 @@ def phase_kernels():
                 library_device_ms=device_time(library)[0],
                 bound_ms=bound, bound_by=bound_by,
                 main_path=shape in ATTN_MAIN_SHAPES,
-                used_by=ATTN_FAMILY_SHAPES.get(shape)))
+                used_by=ATTN_FAMILY_SHAPES.get(shape,
+                                               ATTN_TP_SHAPES.get(shape))))
     emit("kernels", kernels=["attention"], attention=rows)
     # the kernel's line: the four shapes one forward_ego gives it (each
     # 4 times, once per GPT layer), bf16, one launch of each
@@ -1718,7 +1724,455 @@ def phase_lifecycle(datagen_seconds=25.0, drive_seconds=10.0):
     return launches
 
 
+# ---------------------------------------------------------------- parallel
+
+PARALLEL_RANKS = 2
+PARALLEL_BATCH = 4   # global batch of the fp32 checks: 2 rows per data rank
+PARALLEL_TOL = dict(rtol=1e-3, atol=1e-4)  # the train phase's fp32 bound
+PILLAR_ZERO_STEPS = 3
+
+
+def parallel_config(**train):
+    """The flagship with dropout off (fp32 checks) or as configured."""
+    import dataclasses
+
+    from transfuser_torch.config import GlobalConfig
+
+    cfg = GlobalConfig()
+    return cfg.replace(train=dataclasses.replace(cfg.train, **train))
+
+
+def no_dropout(cfg):
+    import dataclasses
+
+    gpt = dataclasses.replace(cfg.model.gpt, embd_pdrop=0.0, attn_pdrop=0.0,
+                              resid_pdrop=0.0)
+    return cfg.replace(model=dataclasses.replace(cfg.model, gpt=gpt))
+
+
+def parallel_batch(cfg, seed=5):
+    """A global batch whose data halves differ: the second rank's rows
+    hold no boxes (its own max(1, peaks) would be 1) and darker images
+    (other BatchNorm statistics)."""
+    from transfuser_torch.data.synthetic import synthetic_batch
+
+    batch = synthetic_batch(cfg, PARALLEL_BATCH, seed=seed)
+    half = PARALLEL_BATCH // 2
+    batch["label"][half:] = 0.0
+    batch["rgb"][half:] *= 0.25
+    return batch
+
+
+def dict_err(got: dict, want: dict) -> float:
+    if set(got) != set(want):
+        raise AssertionError(f"keys {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for k, v in want.items():
+        err = abs(got[k] - v)
+        if not err <= PARALLEL_TOL["atol"] + PARALLEL_TOL["rtol"] * abs(v):
+            raise AssertionError(f"{k}: {got[k]} vs {v} beyond rtol "
+                                 f"{PARALLEL_TOL['rtol']} / atol "
+                                 f"{PARALLEL_TOL['atol']}")
+        worst = max(worst, err)
+    return worst
+
+
+def as_floats(metrics: dict) -> dict:
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def parallel_rank(rank: int, job_path: str) -> None:
+    """One gloo rank on cuda:0 (the card's GPUs are shared by the ranks):
+    (i) data 2: the fp32 train-mode loss dict and eval dict of the global
+    batch, then bf16 train steps with the default dropout and an eval
+    step; (ii) model 2: the fp32 eval step, its attention shapes, an fp32
+    train step with the default dropout, and a bf16 eval step; (iii)
+    PointPillars data 2: 3 fp32 train steps with ZeRO-1 on, a ZeRO-1-off
+    optimizer stepping beside it on the same gradients, then the ZeRO-1
+    state saved and restored into a fresh trainer on the mesh. Writes its
+    numbers and the launches of its Trainer steps (the main path) to
+    <job out>.<rank>.json."""
+    import dataclasses
+
+    import transfuser_torch.models.gpt as gpt
+    from transfuser_torch.data.pack import unpack_batch
+    from transfuser_torch.data.synthetic import synthetic_batch
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.parallel.sharding import (MeshSpec, batch_rows,
+                                                    init_distributed,
+                                                    make_mesh)
+    from transfuser_torch.train.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+    from transfuser_torch.train.losses import (compute_losses, global_losses,
+                                               total_loss)
+    from transfuser_torch.train.trainer import Trainer, _model_inputs
+
+    job = json.load(open(job_path))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    init_distributed(device, backend="gloo",
+                     init_method=f"tcp://127.0.0.1:{job['port']}",
+                     world_size=PARALLEL_RANKS, rank=rank)
+    dp = make_mesh(MeshSpec(data=PARALLEL_RANKS, model=1))
+    tp = make_mesh(MeshSpec(data=1, model=PARALLEL_RANKS))
+    out = {"rank": rank}
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+        return dict(counts)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    # (i) data 2, fp32, dropout off
+    cfg0 = no_dropout(parallel_config())
+    host = parallel_batch(cfg0)
+    trainer = Trainer(cfg0, mesh=dp, dtype=torch.float32, device=device)
+    batch = trainer.put_batch(batch_rows(host, dp))
+    kernels.reset_launches()
+    out["dp_eval_fp32"] = as_floats(trainer.eval_step(batch))
+    sync()
+    out["dp_eval_fp32_launches"] = add(kernels.launches)
+    with torch.no_grad():  # train mode: global BatchNorm and normalisers
+        trainer.model.train()
+        b = unpack_batch(batch)
+        args, extra = _model_inputs(b)
+        o = trainer.model(*args, **extra, compute_aux=True)
+        d = compute_losses(o, b, cfg0, dp.data_group)
+        out["dp_train_fp32"] = as_floats(global_losses(
+            {"loss_total": total_loss(d, cfg0), **d}, dp.data_group))
+    del trainer, batch, o
+    torch.cuda.empty_cache()
+
+    # (i) data 2, bf16, the default dropout: the trainer's own steps
+    cfg = parallel_config()
+    trainer = Trainer(cfg, mesh=dp, dtype=torch.bfloat16, device=device)
+    batch = trainer.put_batch(batch_rows(host, dp))
+    sync()
+    kernels.reset_launches()
+    times, losses = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        losses.append(as_floats(trainer.train_step(batch)))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["dp_train_bf16_launches"] = add(kernels.launches)
+    out["dp_train_bf16_loss_total"] = [m["loss_total"] for m in losses]
+    out["dp_train_bf16_step_ms"] = times
+    kernels.reset_launches()
+    out["dp_eval_bf16"] = as_floats(trainer.eval_step(batch))
+    sync()
+    out["dp_eval_bf16_launches"] = add(kernels.launches)
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (ii) model 2, fp32: each rank's heads
+    shapes = []
+    attention = gpt.attention
+
+    def recorded(q, k, v):
+        shapes.append(list(q.shape))
+        return attention(q, k, v)
+
+    gpt.attention = recorded
+    try:
+        trainer = Trainer(cfg0, mesh=tp, dtype=torch.float32, device=device)
+        batch = trainer.put_batch(batch_rows(host, tp))
+        sync()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out["tp_eval_fp32"] = as_floats(trainer.eval_step(batch))
+        sync()
+        out["tp_eval_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tp_eval_launches"] = add(kernels.launches)
+    finally:
+        gpt.attention = attention
+    out["tp_attention_shapes"] = shapes
+    del trainer, batch
+    # fp32 train step, the default dropout: the masks are one device's
+    trainer = Trainer(cfg, mesh=tp, dtype=torch.float32, device=device)
+    batch = trainer.put_batch(batch_rows(host, tp))
+    sync()
+    kernels.reset_launches()
+    out["tp_train_fp32"] = as_floats(trainer.train_step(batch))
+    sync()
+    out["tp_train_fp32_launches"] = add(kernels.launches)
+    del trainer, batch
+    # bf16: the 2-head shards' rows go through the wrapper's padded copy
+    trainer = Trainer(cfg0, mesh=tp, dtype=torch.bfloat16, device=device)
+    batch = trainer.put_batch(batch_rows(host, tp))
+    sync()
+    kernels.reset_launches()
+    out["tp_eval_bf16"] = as_floats(trainer.eval_step(batch))
+    sync()
+    out["tp_eval_bf16_launches"] = add(kernels.launches)
+    del trainer, batch
+    torch.cuda.empty_cache()
+
+    # (iii) PointPillars, data 2, fp32, the default dropout, ZeRO-1 on.
+    # A ZeRO-1-off optimizer over a second copy of the model steps on the
+    # same averaged gradients (the backward's atomics make two runs of
+    # one step differ on the card, so equal gradients isolate ZeRO-1)
+    pcfg = pillar_config()
+    phost = synthetic_batch(pcfg, PARALLEL_BATCH, seed=0)
+    on, off = (Trainer(pcfg.replace(train=dataclasses.replace(
+        pcfg.train, zero_redundancy_optimizer=zero)), mesh=dp,
+        dtype=torch.float32, device=device) for zero in (True, False))
+    step_on = on.optimizer.step
+
+    def both_steps():
+        for p_off, p_on in zip(off.optimizer.params, on.optimizer.params):
+            p_off.grad = p_on.grad.clone()
+        off.optimizer.step()
+        step_on()
+
+    on.optimizer.step = both_steps
+    batch = on.put_batch(batch_rows(phost, dp))
+    sync()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(PILLAR_ZERO_STEPS):
+        loss = on.train_step(batch)["loss_total"]
+    sync()
+    out["pillar_ms_per_step"] = \
+        (time.perf_counter() - t0) * 1e3 / PILLAR_ZERO_STEPS
+    out["pillar_launches"] = add(kernels.launches)
+    out["pillar_loss_total"] = float(loss)
+    theirs = dict(off.model.named_parameters())
+    diffs = {k: float((p.detach() - theirs[k].detach()).abs().max())
+             for k, p in on.model.named_parameters()}
+    out["zero_on_vs_off"] = max(diffs.values())
+    out["zero_moments_kept"] = [len(on.optimizer.owned),
+                                len(on.optimizer.params)]
+    # the ZeRO-1 state written (rank 0) and restored on the mesh: rank 0
+    # reads, broadcasts tensor by tensor, each rank keeps its moments
+    ckpt = os.path.join(os.path.dirname(job["out"]), "pillar_ckpt")
+    save_checkpoint(ckpt, on.model, on.optimizer, PILLAR_ZERO_STEPS)
+    again = Trainer(on.config, mesh=dp, dtype=torch.float32, device=device)
+    step = restore_checkpoint(ckpt, PILLAR_ZERO_STEPS, again.model,
+                              again.optimizer)
+    mine, theirs = on.optimizer.state_dict(), again.optimizer.state_dict()
+    errs = [float((a - b).abs().max()) for a, b in zip(
+        list(on.model.state_dict().values()) + mine["mu"] + mine["nu"],
+        list(again.model.state_dict().values()) + theirs["mu"] +
+        theirs["nu"]) if a.is_floating_point()]
+    out["zero_restore"] = {"step": step, "max_abs_err": max(errs),
+                           "tensors": len(errs)}
+    del on, off, again, batch
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    with open(f"{job['out']}.{rank}.json", "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def torchrun_cli(job_path: str) -> None:
+    """A torchrun worker: the training CLI from ``env://`` (NCCL), its
+    process group's backend and size, and its kernel launches."""
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.train import cli
+
+    job = json.load(open(job_path))
+    seen = {}
+    train = cli._train
+
+    def recorded(args, device):
+        seen.update(backend=torch.distributed.get_backend(),
+                    world=torch.distributed.get_world_size(),
+                    device=str(device))
+        return train(args, device)
+
+    cli._train = recorded
+    kernels.reset_launches()
+    summary = cli.main(job["argv"])
+    with open(job["out"], "w") as f:
+        json.dump(dict(seen, launches=dict(kernels.launches),
+                       history=summary["history"]), f)
+
+
+def phase_parallel():
+    """Two gloo ranks sharing cuda:0 drive the trainer under a mesh:
+    (i) the flagship at data 2, (ii) at model 2 (tensor parallel; an
+    eval step and a train step with dropout against one process), (iii)
+    PointPillars at data 2 with ZeRO-1, its state saved and restored on
+    the mesh; then (iv) the training CLI under ``torchrun
+    --nproc_per_node 1`` with NCCL at world size 1."""
+    from transfuser_torch.data.pack import unpack_batch
+    from transfuser_torch.data.synthetic import write_route
+    from transfuser_torch.models import LidarCenterNet
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.train.losses import compute_losses, total_loss
+    from transfuser_torch.train.trainer import (Trainer, _model_inputs,
+                                                make_eval_step)
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # the single-process references: the same seeded weights, the whole
+    # global batch (outside the launch count)
+    cfg0 = no_dropout(parallel_config())
+    model = LidarCenterNet(cfg0, dtype=torch.float32, device="cuda", seed=0)
+    batch = {k: torch.as_tensor(v).cuda()
+             for k, v in parallel_batch(cfg0).items()}
+    ref_eval = as_floats(make_eval_step(model, cfg0)(batch))
+    with torch.no_grad():  # after the eval: it updates the running stats
+        model.train()
+        b = unpack_batch(batch)
+        args, extra = _model_inputs(b)
+        d = compute_losses(model(*args, **extra, compute_aux=True), b, cfg0)
+        ref_train = as_floats({"loss_total": total_loss(d, cfg0), **d})
+    # a train step with the default dropout, from the trainer's generator
+    one = Trainer(parallel_config(), dtype=torch.float32, device="cuda")
+    ref_dropout = as_floats(one.train_step(batch))
+    del model, batch, one
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    out = {"backend": "gloo", "ranks": PARALLEL_RANKS, "device": "cuda:0",
+           "global_batch": PARALLEL_BATCH, "tolerance": PARALLEL_TOL}
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    try:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        job = os.path.join(tmp, "job.json")
+        with open(job, "w") as f:
+            json.dump({"port": port, "out": os.path.join(tmp, "rank")}, f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), job], cwd=here, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(PARALLEL_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"parallel rank {r} exited "
+                                     f"{p.returncode}:\n{log[-3000:]}")
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = [json.load(open(os.path.join(tmp, f"rank.{r}.json")))
+                 for r in range(PARALLEL_RANKS)]
+        per_rank = []
+        for res in ranks:
+            for key in ("dp_train_fp32", "dp_eval_fp32", "tp_eval_fp32",
+                        "tp_train_fp32"):
+                if res[key] != ranks[0][key]:
+                    raise AssertionError(f"{key} differs between ranks")
+            row = {"rank": res["rank"],
+                   "dp_train_fp32_max_abs_err": dict_err(
+                       res["dp_train_fp32"], ref_train),
+                   "dp_eval_fp32_max_abs_err": dict_err(
+                       res["dp_eval_fp32"], ref_eval),
+                   "tp_eval_fp32_max_abs_err": dict_err(
+                       res["tp_eval_fp32"], ref_eval),
+                   "tp_train_dropout_fp32_max_abs_err": dict_err(
+                       res["tp_train_fp32"], ref_dropout)}
+            want = {"dp_eval_fp32_launches": {"attention": 16,
+                                              "scatter_max": 0},
+                    "dp_train_bf16_launches": {"attention": 0,
+                                               "scatter_max": 0},
+                    "dp_eval_bf16_launches": {"attention": 16,
+                                              "scatter_max": 0},
+                    "tp_eval_launches": {"attention": 16, "scatter_max": 0},
+                    "tp_train_fp32_launches": {"attention": 0,
+                                               "scatter_max": 0},
+                    "tp_eval_bf16_launches": {"attention": 16,
+                                              "scatter_max": 0}}
+            want["pillar_launches"] = {"attention": 0,
+                                       "scatter_max": PILLAR_ZERO_STEPS}
+            for key, counts in want.items():
+                if res[key] != counts:
+                    raise AssertionError(f"rank {res['rank']} {key} "
+                                         f"{res[key]}, expected {counts}")
+            heads = {tuple(s[:3]) for s in res["tp_attention_shapes"]}
+            if heads != {(PARALLEL_BATCH, 174, 2)}:
+                raise AssertionError(f"tensor-parallel attention shapes "
+                                     f"{res['tp_attention_shapes']}")
+            if not np.isfinite(res["dp_train_bf16_loss_total"] +
+                               list(res["dp_eval_bf16"].values()) +
+                               list(res["tp_eval_bf16"].values())).all():
+                raise AssertionError(f"non-finite bf16 losses {res}")
+            kept, total = res["zero_moments_kept"]
+            if not kept < total:
+                raise AssertionError(f"ZeRO-1 kept {kept} of {total} "
+                                     "parameters' moments")
+            if res["zero_on_vs_off"] != 0.0:
+                raise AssertionError(
+                    f"ZeRO-1 on vs off: parameters differ by "
+                    f"{res['zero_on_vs_off']} after {PILLAR_ZERO_STEPS} "
+                    f"steps on the same gradients")
+            restored = res["zero_restore"]
+            if restored["step"] != PILLAR_ZERO_STEPS or \
+                    restored["max_abs_err"] != 0.0:
+                raise AssertionError(f"ZeRO-1 state restored on the mesh: "
+                                     f"{restored}")
+            row.update({k: res[k] for k in (
+                "dp_train_bf16_loss_total", "dp_train_bf16_step_ms",
+                "tp_eval_ms", "pillar_ms_per_step", "pillar_loss_total",
+                "zero_on_vs_off", "zero_moments_kept", "zero_restore",
+                "launches")})
+            row["tp_attention_shapes"] = sorted(
+                {tuple(s) for s in res["tp_attention_shapes"]})
+            per_rank.append(row)
+            for k, v in res["launches"].items():
+                launches[k] += v
+        out["per_rank"] = per_rank
+
+        # (iv) torchrun, one process, NCCL, on a written dataset
+        root, logdir = os.path.join(tmp, "data"), os.path.join(tmp, "log")
+        write_route(os.path.join(root, "T", "Town01_route0"), 13, seed=20)
+        write_route(os.path.join(root, "T", "Town02_route0"), 11, seed=21)
+        cli_job = os.path.join(tmp, "cli.json")
+        with open(cli_job, "w") as f:
+            json.dump({"out": os.path.join(tmp, "cli_out.json"), "argv": [
+                "--root_dir", root, "--logdir", logdir, "--setting",
+                "02_05_withheld", "--epochs", "1", "--batch_size", "2",
+                "--val_every", "1", "--num_workers", "2"]}, f)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", os.path.abspath(__file__),
+             "--torchrun-cli", cli_job], cwd=here, capture_output=True,
+            text=True, timeout=600)
+        if run.returncode != 0:
+            raise AssertionError(f"torchrun CLI exited {run.returncode}:\n"
+                                 f"{(run.stdout + run.stderr)[-3000:]}")
+        res = json.load(open(os.path.join(tmp, "cli_out.json")))
+        if (res["backend"], res["world"], res["device"]) != \
+                ("nccl", 1, "cuda:0"):
+            raise AssertionError(f"torchrun CLI ran on {res}")
+        if res["launches"]["attention"] != 16 or \
+                not np.isfinite(res["history"][0]["loss_total"]):
+            raise AssertionError(f"torchrun CLI: {res}")
+        out["torchrun_cli"] = dict(res, seconds=time.perf_counter() - t0)
+        for k, v in res["launches"].items():
+            launches[k] += v
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("parallel", **out)
+    return launches
+
+
 def main() -> int:
+    argv = sys.argv[1:]
+    if "--parallel-rank" in argv:  # a rank of the parallel phase
+        i = argv.index("--parallel-rank")
+        parallel_rank(int(argv[i + 1]), argv[i + 2])
+        return 0
+    if "--torchrun-cli" in argv:  # the parallel phase's torchrun worker
+        torchrun_cli(argv[argv.index("--torchrun-cli") + 1])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
               file=sys.stderr)
@@ -1745,6 +2199,12 @@ def main() -> int:
                 if "Compiling entry" in line or "Used" in line or
                 "spill" in line])
 
+    if "--only" in argv:  # development: just the named phases
+        for name in argv[argv.index("--only") + 1:]:
+            globals()[f"phase_{name}"]()
+        print("chip_smoke: partial run (--only), no result", file=sys.stderr)
+        return 0
+
     floor_ms = phase_launch_floor()
     numbers = {"attention": phase_kernels()}
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1766,7 +2226,7 @@ def main() -> int:
                   phase_geometric_train,
                   lambda: phase_pillars_forward_ego(pillar_config()),
                   lambda: phase_train(pillar_config(), profile=profile),
-                  phase_cli, phase_lifecycle):
+                  phase_cli, phase_lifecycle, phase_parallel):
         for name, count in phase().items():
             launches[name] += count
         torch.cuda.empty_cache()

@@ -16,7 +16,7 @@ import jax.numpy as jnp
 from transfuser_tpu.ops.attention import (pallas_attention,
                                           reference_attention as jax_ref)
 from transfuser_torch.ops import kernels
-from transfuser_torch.ops.attention import (_check, attention,
+from transfuser_torch.ops.attention import (_bf16_rows, _check, attention,
                                             reference_attention)
 
 # as tests/test_attention.py holds the Pallas kernel to the einsum path
@@ -134,3 +134,18 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q = torch.zeros(1, 8, 4, 2).transpose(2, 3)
     with pytest.raises((ValueError, TypeError)):
         _check(q, k, v)
+
+
+@pytest.mark.parametrize("d", [18, 54, 144, 378])
+def test_bf16_rows_of_two_head_shards_are_readable(d):
+    """The tensor-parallel GPT's 2-head shards (row stride 2D): the
+    wrapper's copy into padded rows passes the kernel's layout check and
+    holds the same values; readable inputs are passed through as they
+    are."""
+    q = torch.randn(4, 174, 2, d).bfloat16()
+    staged = _bf16_rows(q)
+    _check(staged, staged, staged)
+    assert torch.equal(staged, q)
+    assert (staged is q) == (2 * d % 8 == 0)
+    four = torch.randn(1, 174, 4, d).bfloat16()
+    assert _bf16_rows(four) is four

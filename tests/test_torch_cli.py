@@ -1,5 +1,6 @@
 """The port's training CLI against the JAX package's: flags and the config
-they build, the refusal of what is not ported, the elastic restart, and a
+they build, the refusal of meshes the world cannot hold, the elastic
+restart, and a
 real run on the CPU over a written dataset whose export the port's agent
 then drives with (the port's counterpart of tests/test_lifecycle.py; its
 closed-loop half, an export driven through the port's harness CLI, is in
@@ -66,11 +67,16 @@ def test_config_from_args_equals_jax(argv):
     assert json.loads(ours.to_json()) == json.loads(theirs.to_json())
 
 
-@pytest.mark.parametrize("argv", [["--mesh_data", "2"], ["--mesh_model", "2"],
-                                  ["--multihost", "1"]],
-                         ids=["mesh_data", "mesh_model", "multihost"])
-def test_multi_device_flags_are_refused(tmp_path, argv):
-    with pytest.raises(SystemExit, match="Queue 1 item 13"):
+@pytest.mark.parametrize("argv,match", [
+    (["--mesh_data", "2"], "mesh 2x1 needs 2 processes; this run has 1"),
+    (["--mesh_model", "2"], "mesh 1x2 needs 2 processes; this run has 1"),
+    (["--multihost", "1"], "needs --coordinator_address")],
+    ids=["mesh_data", "mesh_model", "multihost"])
+def test_multi_device_flags_are_refused(tmp_path, argv, match):
+    """The mesh flags run (tests/test_torch_parallel.py); one process
+    refuses a mesh larger than its world, and --multihost 1 without its
+    coordinator, before it writes anything."""
+    with pytest.raises(SystemExit, match=match):
         cli.main(["--root_dir", str(tmp_path), "--logdir", str(tmp_path),
                   "--device", "cpu"] + argv)
     assert not (tmp_path / "transfuser").exists()

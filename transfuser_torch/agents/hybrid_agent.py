@@ -28,7 +28,8 @@ the host from the frame's cloud.
 Members of any backbone family from reference ``.pth`` files or natively
 trained ``model_*.msgpack`` files (the JAX package's inference format,
 written by either package's training CLI). ``pipelined_fetch`` and
-``async_inference`` are still to be ported (ROADMAP.md queue 1) and raise.
+``async_inference`` are still to be ported (ROADMAP.md Queue 1 item 5) and
+raise.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ class HybridAgent(AutonomousAgent):
         if ctrl.pipelined_fetch or ctrl.async_inference:
             raise NotImplementedError(
                 "pipelined_fetch / async_inference are not ported yet "
-                "(ROADMAP.md queue 1); the port runs the synchronous frame")
+                "(ROADMAP.md Queue 1 item 5); the port runs the synchronous "
+                "frame")
         n_pth = sum(p.endswith(".pth") for p in weight_files)
         if n_pth and not self.config.model.gpt.reference_view_unpack:
             # Reference torch checkpoints carry the GPT token-unpack view

@@ -5,9 +5,12 @@ Replaces the reference's 8-worker fork-based torch DataLoader
 (train.py:156-163) with a thread pool and a reorder heap: while the card
 runs step N, later batches are decoded and copied. Deterministic per-epoch
 shuffling mirrors DistributedSampler.set_epoch (train.py:191-193); for the
-same seed and epoch the batches come in the JAX loader's order. One
-process; the JAX loader's per-host sharding comes with the multi-device
-port (ROADMAP.md Queue 1 item 13).
+same seed and epoch the batches come in the JAX loader's order. Under data
+parallelism each process loads its shard (``shard_rank`` of
+``shard_count``: the data index and the data axis' size, so the model
+ranks of one data index load the same rows): shuffle, every
+``shard_count``-th index from ``shard_rank``, then drop the last partial
+batch, as the JAX loader does.
 """
 
 from __future__ import annotations
@@ -47,7 +50,8 @@ class PrefetchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0,
                  drop_last: bool = True, prefetch: int = 2,
-                 device_put: Optional[Callable] = None):
+                 device_put: Optional[Callable] = None,
+                 shard_rank: int = 0, shard_count: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,6 +60,8 @@ class PrefetchLoader:
         self.drop_last = drop_last
         self.prefetch = max(1, prefetch)
         self.device_put = device_put
+        self.shard_rank = shard_rank
+        self.shard_count = shard_count
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
@@ -65,13 +71,14 @@ class PrefetchLoader:
         idx = list(range(len(self.dataset)))
         if self.shuffle:
             random.Random(self.seed + self.epoch).shuffle(idx)
+        idx = idx[self.shard_rank::self.shard_count]
         if self.drop_last:
             idx = idx[:(len(idx) // self.batch_size) * self.batch_size]
         return [idx[i:i + self.batch_size]
                 for i in range(0, len(idx), self.batch_size)]
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.shard_count
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
 

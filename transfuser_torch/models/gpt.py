@@ -14,6 +14,18 @@ Dropout masks come from the ``torch.Generator`` the caller passes (the
 trainer seeds one per step from ``config.train.seed`` and the step), or
 from torch's default generator. They cannot equal the JAX package's
 ``fold_in`` stream: the two frameworks draw different bits from one seed.
+
+Tensor parallel (``Block.set_tensor_parallel``, called by
+``parallel.sharding.shard_model`` once the linears hold their shards):
+q/k/v and ``mlp.0`` hold a column shard, so each rank computes
+``n_head / model`` heads and its slice of the MLP's hidden units; ``proj``
+and ``mlp.2`` hold a row shard, their partial outputs are summed over the
+model group and the bias is added once, after the sum (Megatron's
+identity / all-reduce pair, ``parallel/comm.py``). The ranks of a model
+group hold the same rows and draw the same dropout stream, so the
+replicated activations stay equal on all of them; the attention
+probabilities' mask is drawn for every head and each rank keeps its
+heads' slice, so the masks are one device's.
 """
 
 from __future__ import annotations
@@ -23,21 +35,41 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.attention import attention
 from ..ops.dtypes import acc_dtype
+from ..parallel import comm
 from .layers import LayerNorm, Linear
 
 Generator = Optional[torch.Generator]
 
 
-def dropout(x: torch.Tensor, rate: float, gen: Generator) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, gen: Generator,
+            heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - rate, scale kept
-    values by 1 / (1 - rate) in x's dtype."""
+    values by 1 / (1 - rate) in x's dtype. ``heads`` = (first, count):
+    x holds heads first.. of ``count`` on dim 1; the mask is drawn for all
+    of them and sliced, so it and the generator's stream are those of the
+    unsharded x."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= rate
+    shape = x.shape if heads is None else \
+        (x.shape[0], heads[1]) + tuple(x.shape[2:])
+    keep = torch.rand(shape, generator=gen, device=x.device) >= rate
+    if heads is not None:
+        keep = keep[:, heads[0]:heads[0] + x.shape[1]]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def row_parallel(linear: Linear, x: torch.Tensor,
+                 group: comm.Group) -> torch.Tensor:
+    """A row-parallel linear: this rank's partial product, summed over
+    the model group, then the bias; the plain linear without a group."""
+    if group is None:
+        return linear(x)
+    y = F.linear(x, linear.weight.to(x.dtype))
+    return comm.reduce_from_group(y, group) + linear.bias.to(x.dtype)
 
 
 class SelfAttention(nn.Module):
@@ -51,22 +83,28 @@ class SelfAttention(nn.Module):
         self.n_head = n_head
         self.attn_pdrop = attn_pdrop
         self.resid_pdrop = resid_pdrop
+        self.tp_group: comm.Group = None
+        self.local_heads = n_head
+        self.first_head = 0
 
     def forward(self, x: torch.Tensor, gen: Generator = None) -> torch.Tensor:
         b, t, c = x.shape
         hs = c // self.n_head
-        q = self.query(x).reshape(b, t, self.n_head, hs)
-        k = self.key(x).reshape(b, t, self.n_head, hs)
-        v = self.value(x).reshape(b, t, self.n_head, hs)
+        x = comm.copy_to_group(x, self.tp_group)
+        q = self.query(x).reshape(b, t, self.local_heads, hs)
+        k = self.key(x).reshape(b, t, self.local_heads, hs)
+        v = self.value(x).reshape(b, t, self.local_heads, hs)
         if self.training and self.attn_pdrop > 0.0:
             acc = acc_dtype(x.dtype)
             att = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc))
             att = torch.softmax(att * (1.0 / math.sqrt(hs)), dim=-1)
-            att = dropout(att.to(x.dtype), self.attn_pdrop, gen)
+            att = dropout(att.to(x.dtype), self.attn_pdrop, gen,
+                          (self.first_head, self.n_head))
             y = torch.einsum("bhts,bshd->bthd", att, v)
         else:
             y = attention(q, k, v)
-        y = self.proj(y.reshape(b, t, c))
+        y = row_parallel(self.proj, y.reshape(b, t, self.local_heads * hs),
+                         self.tp_group)
         return dropout(y, self.resid_pdrop, gen) if self.training else y
 
 
@@ -81,10 +119,24 @@ class Block(nn.Module):
             Linear(n_embd, block_exp * n_embd), nn.ReLU(),
             Linear(block_exp * n_embd, n_embd))
         self.resid_pdrop = resid_pdrop
+        self.tp_group: comm.Group = None
+
+    def set_tensor_parallel(self, group: comm.Group, size: int,
+                            index: int) -> None:
+        """Run on this rank's shard (``index`` of ``size``) of the heads
+        and MLP units (the linears already hold their shards)."""
+        if self.attn.n_head % size:
+            raise ValueError(f"{self.attn.n_head} heads do not divide over "
+                             f"{size} model ranks")
+        self.tp_group = self.attn.tp_group = group
+        self.attn.local_heads = self.attn.n_head // size
+        self.attn.first_head = index * self.attn.local_heads
 
     def forward(self, x: torch.Tensor, gen: Generator = None) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), gen)
-        h = self.mlp(self.ln2(x))
+        h = comm.copy_to_group(self.ln2(x), self.tp_group)
+        h = row_parallel(self.mlp[2], self.mlp[1](self.mlp[0](h)),
+                         self.tp_group)
         return x + (dropout(h, self.resid_pdrop, gen) if self.training
                     else h)
 

@@ -11,6 +11,15 @@ training mode it normalises with the batch's mean and biased variance
 batch``, with the biased variance. ``F.batch_norm`` would update
 ``running_var`` with the unbiased one, so the port computes the
 statistics itself. In eval mode it uses the running statistics.
+
+Under data parallelism (a BatchNorm module's ``process_group`` set by the
+trainer to the mesh's data group) the training statistics are the global
+batch's, as under the JAX package's GSPMD mesh: the sum and count, then
+the sum of squared deviations from the global mean, are all-reduced
+through a differentiable all-reduce (``parallel/comm.py``), and every
+rank normalises with them and folds the same values into its running
+statistics. The two-pass form keeps fp32 as close to one device's
+``var_mean`` as the summation order allows.
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dtypes import at_least_f32
+from ..parallel import comm
 
 FLAX_BN_MOMENTUM = 0.9
 
@@ -60,17 +70,44 @@ def flax_batch_norm(bn: nn.modules.batchnorm._BatchNorm,
     if not bn.training:
         return F.batch_norm(x32, bn.running_mean, bn.running_var, bn.weight,
                             bn.bias, False, 0.0, bn.eps).to(x.dtype)
+    group = getattr(bn, "process_group", None)
+    if comm.group_size(group) > 1:
+        return _global_batch_norm(bn, x32, group).to(x.dtype)
     with torch.no_grad():
         dims = [0] + list(range(2, x32.dim()))
         var, mean = torch.var_mean(x32, dim=dims, correction=0)
-        m = FLAX_BN_MOMENTUM
-        bn.running_mean.mul_(m).add_(mean.to(bn.running_mean.dtype),
-                                     alpha=1 - m)
-        bn.running_var.mul_(m).add_(var.to(bn.running_var.dtype),
-                                    alpha=1 - m)
+        _update_running(bn, mean, var)
     # training-mode F.batch_norm normalises with the biased batch variance
     return F.batch_norm(x32, None, None, bn.weight, bn.bias, True, 0.0,
                         bn.eps).to(x.dtype)
+
+
+@torch.no_grad()
+def _update_running(bn, mean: torch.Tensor, var: torch.Tensor) -> None:
+    m = FLAX_BN_MOMENTUM
+    bn.running_mean.mul_(m).add_(mean.to(bn.running_mean.dtype),
+                                 alpha=1 - m)
+    bn.running_var.mul_(m).add_(var.to(bn.running_var.dtype),
+                                alpha=1 - m)
+
+
+def _global_batch_norm(bn, x32: torch.Tensor, group) -> torch.Tensor:
+    """Training-mode BatchNorm with the data group's statistics (biased
+    variance, fp32)."""
+    c = x32.shape[1]
+    dims = [0] + list(range(2, x32.dim()))
+    shape = [1, c] + [1] * (x32.dim() - 2)
+    count = torch.full((1,), x32.numel() // c, dtype=x32.dtype,
+                       device=x32.device)
+    sums = comm.all_reduce_sum(torch.cat([x32.sum(dims), count]), group)
+    mean = sums[:c] / sums[c]
+    xc = x32 - mean.reshape(shape)
+    var = comm.all_reduce_sum((xc * xc).sum(dims), group) / sums[c]
+    _update_running(bn, mean.detach(), var.detach())
+    y = xc * torch.rsqrt(var + bn.eps).reshape(shape)
+    if bn.weight is not None:
+        y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    return y
 
 
 class BatchNorm2d(nn.BatchNorm2d):

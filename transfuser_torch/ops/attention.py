@@ -17,7 +17,9 @@ dtype first). Forward only: the Pallas kernel has no VJP either. On the
 CPU the plain version is differentiable; on the card the wrapper raises
 when autograd would need a gradient through it (grad mode on and an
 input that requires grad), rather than hand back an output with no
-``grad_fn``. Training with attention dropout takes the GPT's explicit
+``grad_fn``. bf16 inputs whose row strides the kernel cannot read (the
+tensor-parallel GPT's 2-head shards) are first copied into padded rows
+(``_bf16_rows``). Training with attention dropout takes the GPT's explicit
 probabilities instead (models/gpt.py).
 """
 
@@ -83,6 +85,26 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                              f"{x.stride()}")
 
 
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or for a bf16 tensor with even D whose strides the bf16
+    kernel cannot read, a copy into a buffer whose D is padded so that
+    the head stride is even and the row and batch strides are multiples
+    of 8 (the kernel reads the unpadded D). The 4-head GPT never needs
+    it; its tensor-parallel shards of 2 heads at D = 18, 54 and 378 do
+    (row stride 2D)."""
+    b, t, h, d = x.shape
+    sb, st, sh, sd = x.stride()
+    if x.dtype != torch.bfloat16 or d % 2 or (
+            sd == 1 and x.data_ptr() % 16 == 0 and sh % 2 == 0 and
+            (b == 1 or sb % 8 == 0) and (t == 1 or st % 8 == 0)):
+        return x  # readable as it is, or refused by _check
+    padded = d
+    while (h * padded) % 8:
+        padded += 2
+    rows = x.new_empty((b, t, h, padded))[..., :d]
+    return rows.copy_(x)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """(B, T, H, D) fused attention; the output has q's dtype."""
@@ -97,6 +119,8 @@ def attention(q: torch.Tensor, k: torch.Tensor,
             "the attention kernel is forward only (the Pallas kernel has no "
             "VJP either): call it under torch.no_grad(), or train with "
             "attn_pdrop > 0, which takes the explicit-probabilities branch")
+    if q.dim() == 4 and q.shape == k.shape == v.shape:
+        q, k, v = (_bf16_rows(x) for x in (q, k, v))
     _check(q, k, v)
     out = torch.empty_like(q)  # q's layout where dense, else contiguous
     b, t, h, d = q.shape

@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import comm
+
 
 def class_to_angle(cls: torch.Tensor, res: torch.Tensor, num_dir_bins: int,
                    limit_period: bool = True) -> torch.Tensor:
@@ -136,11 +138,17 @@ class CenterNetTargets(NamedTuple):
 def build_targets(labels: torch.Tensor, valid: torch.Tensor,
                   feat_hw: Tuple[int, int], image_hw: Tuple[int, int],
                   num_dir_bins: int, min_overlap: float = 0.1,
-                  min_radius: int = 2) -> CenterNetTargets:
+                  min_radius: int = 2,
+                  group: comm.Group = None) -> CenterNetTargets:
     """Dense CenterNet targets from padded box labels.
 
     labels (B, K, 7) [cx, cy, w, h, yaw, speed, brake] in image pixels;
     valid (B, K) bool (False rows are the zero padding, model.py:774).
+    ``avg_factor`` is the number of heatmap peaks in the batch, clamped at
+    1; with a data-parallel ``group``, the peaks of the global batch,
+    clamped at 1, then shared evenly among the group's ranks (each rank's
+    sum over its rows divided by it is its share of the global loss,
+    times the group's size, which the gradient average takes back).
     """
     bsz, k, _ = labels.shape
     feat_h, feat_w = feat_hw
@@ -197,7 +205,8 @@ def build_targets(labels: torch.Tensor, valid: torch.Tensor,
                    values.reshape(-1, values.shape[-1]))
     t = dense[:n_pix].reshape(bsz, feat_h, feat_w, -1)
 
-    avg_factor = torch.clamp((heatmap == 1.0).sum().to(fdt), min=1.0)
+    peaks = comm.all_reduce_sum((heatmap == 1.0).sum().to(fdt), group)
+    avg_factor = torch.clamp(peaks, min=1.0) / comm.group_size(group)
     return CenterNetTargets(
         heatmap=heatmap, wh=t[..., 0:2], offset=t[..., 2:4],
         yaw_class=t[..., 4].long(), yaw_res=t[..., 5], velocity=t[..., 6],
@@ -241,26 +250,33 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 def weighted_ce_loss(logits: torch.Tensor, labels: torch.Tensor,
                      weight: torch.Tensor, avg_factor: torch.Tensor,
-                     batch_broadcast: bool = False) -> torch.Tensor:
+                     batch_broadcast: bool = False,
+                     group: comm.Group = None) -> torch.Tensor:
     """logits (B, H, W, C), integer labels (B, H, W), weight (B, H, W).
 
     ``batch_broadcast`` reproduces the reference's yaw-class/brake CE:
     mmdet multiplies the (B,H,W) loss map by the (B,1,H,W) weight, which
     broadcasts to (B,B,H,W), so every sample's loss map is weighted by
-    every sample's center mask before the sum."""
+    every sample's center mask before the sum. Under a data-parallel
+    ``group`` "every sample" is the global batch's: the center masks are
+    summed over the group."""
     nll = _nll(logits, labels)
     if batch_broadcast:
-        return (nll.sum(0) * weight.sum(0)).sum() / avg_factor
+        masks = comm.all_reduce_sum(weight.sum(0), group)
+        return (nll.sum(0) * masks).sum() / avg_factor
     return (nll * weight).sum() / avg_factor
 
 
 def cross_entropy_mean(logits: torch.Tensor, labels: torch.Tensor,
-                       class_weights: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       class_weights: Optional[torch.Tensor] = None,
+                       group: comm.Group = None) -> torch.Tensor:
     """F.cross_entropy(reduction='mean') over NHWC logits, with its
-    weighted-mean rule sum(w_y * nll) / sum(w_y)."""
+    weighted-mean rule sum(w_y * nll) / sum(w_y). Under a data-parallel
+    ``group`` the denominator is the group's mean of sum(w_y), so the
+    group's mean of this loss is the global batch's weighted mean (an
+    unweighted mean needs nothing: the shards are of one size)."""
     nll = _nll(logits, labels)
     if class_weights is None:
         return nll.mean()
     w = class_weights.to(nll.dtype)[labels.long()]
-    return (nll * w).sum() / w.sum()
+    return (nll * w).sum() / comm.all_reduce_mean(w.sum(), group)

@@ -17,6 +17,13 @@ Two formats:
 
 Every run directory carries a config.json that the agents use to rebuild
 the exact architecture.
+
+Under a mesh (``parallel/sharding.py``) the files are the same as on one
+device: ``snapshot`` gathers the full model (tensor-parallel shards) and
+the full optimizer state (ZeRO-1 moments, shards) on every rank, and only
+rank 0 writes. ``restore_checkpoint`` reads on rank 0 and broadcasts the
+state tensor by tensor on the model's device; every rank keeps its
+share, so a checkpoint written at one mesh resumes at another.
 """
 
 from __future__ import annotations
@@ -28,8 +35,11 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import GlobalConfig
+from ..parallel.sharding import full_state_dict, is_chief, \
+    load_full_state_dict
 from . import flax_msgpack
 
 CONFIG_SNAPSHOT = "config.json"
@@ -48,14 +58,15 @@ def load_config_snapshot(logdir: str) -> GlobalConfig:
 # ------------------------------------------------------------- train state
 
 def snapshot(model: torch.nn.Module, optimizer) -> Dict[str, Any]:
-    """The train state as CPU tensors. The optimizer updates parameters in
-    place, so the copy must be finished before the next step runs: the
-    copies are queued, then waited for once."""
+    """The full train state as CPU tensors (collective under a mesh). The
+    optimizer updates parameters in place, so the copy must be finished
+    before the next step runs: the copies are queued, then waited for
+    once."""
     def host(t: torch.Tensor) -> torch.Tensor:
         return t.detach().to("cpu", non_blocking=True, copy=True)
 
     opt = optimizer.state_dict()
-    state = {"model": {k: host(v) for k, v in model.state_dict().items()},
+    state = {"model": {k: host(v) for k, v in full_state_dict(model).items()},
              "optimizer": {"step_count": opt["step_count"],
                            "mu": [host(v) for v in opt["mu"]],
                            "nu": [host(v) for v in opt["nu"]]},
@@ -80,17 +91,62 @@ def write_state(logdir: str, epoch: int, state: Dict[str, Any]) -> str:
 
 def save_checkpoint(logdir: str, model: torch.nn.Module, optimizer,
                     epoch: int) -> str:
-    """Save model + optimizer state for `epoch`; returns its directory."""
-    return write_state(logdir, epoch, snapshot(model, optimizer))
+    """Save model + optimizer state for `epoch` (rank 0 writes); returns
+    its directory."""
+    state = snapshot(model, optimizer)
+    path = os.path.join(logdir, str(epoch))
+    return write_state(logdir, epoch, state) if is_chief() else path
+
+
+def broadcast_state(state: Optional[Dict[str, Any]],
+                    device: torch.device) -> Dict[str, Any]:
+    """Rank 0's train state on every rank: its layout (names, shapes,
+    dtypes, step) as one small object, then each tensor by a broadcast on
+    ``device`` (NCCL broadcasts the card's tensors), one at a time so a
+    rank holds one full copy of the state and no staging buffer."""
+    head = [None]
+    if state is not None:
+        opt = state["optimizer"]
+        head[0] = {"step": state["step"], "step_count": opt["step_count"],
+                   "model": [(k, v.shape, v.dtype)
+                             for k, v in state["model"].items()],
+                   "mu": [(i, v.shape, v.dtype)
+                          for i, v in enumerate(opt["mu"])],
+                   "nu": [(i, v.shape, v.dtype)
+                          for i, v in enumerate(opt["nu"])]}
+    dist.broadcast_object_list(head, src=0)
+    head = head[0]
+
+    def tensors(layout, src):
+        out = []
+        for key, shape, dtype in layout:
+            t = src[key].to(device) if src is not None else \
+                torch.empty(shape, dtype=dtype, device=device)
+            dist.broadcast(t, src=0)
+            out.append((key, t))
+        return out
+
+    opt = None if state is None else state["optimizer"]
+    return {"model": dict(tensors(head["model"],
+                                  None if state is None else state["model"])),
+            "optimizer": {"step_count": head["step_count"],
+                          **{m: [t for _, t in tensors(
+                              head[m], None if opt is None else opt[m])]
+                             for m in ("mu", "nu")}},
+            "step": head["step"]}
 
 
 def restore_checkpoint(logdir: str, epoch: int, model: torch.nn.Module,
                        optimizer) -> int:
     """Load `epoch`'s state into model and optimizer in place; returns the
-    step."""
-    state = torch.load(os.path.join(logdir, str(epoch), TRAIN_STATE),
-                       map_location="cpu", weights_only=True)
-    model.load_state_dict(state["model"], strict=True)
+    step. Under a process group rank 0 reads and broadcasts it."""
+    state = None
+    if is_chief():
+        state = torch.load(os.path.join(logdir, str(epoch), TRAIN_STATE),
+                           map_location="cpu", weights_only=True)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        state = broadcast_state(state, next(model.parameters()).device)
+    load_full_state_dict(model, state["model"])
     optimizer.load_state_dict(state["optimizer"])
     return int(state["step"])
 
@@ -118,6 +174,8 @@ class AsyncCheckpointWriter:
         state = snapshot(model, optimizer)
         record = {"epoch": epoch, "return_s": time.perf_counter() - t0}
         self.saves.append(record)
+        if not is_chief():
+            return
 
         def write():
             try:

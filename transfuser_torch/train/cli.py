@@ -1,35 +1,52 @@
 """Training CLI (counterpart of transfuser_tpu/train/cli.py; the reference
-train.py:30-211 surface) on one device.
+train.py:30-211 surface) on one device or a (data x model) mesh of
+processes, one device each.
 
     python -m transfuser_torch.train.cli --root_dir <dataset> [flags]
+    torchrun --nproc_per_node N -m transfuser_torch.train.cli ...
+    python -m transfuser_torch.train.cli --multihost 1 \
+        --coordinator_address host:port --num_processes N --process_id i ...
 
 Every flag of the JAX CLI, with its default, plus ``--device`` (``cuda``
-unless the caller asks for ``cpu``). The JAX CLI's mesh flags name what is
-not ported yet (ROADMAP.md Queue 1 item 13): ``--mesh_data`` above 1,
-``--mesh_model`` above 1 and ``--multihost 1`` exit with that message;
-``--mesh_data 0`` means this one device. ``--sync_batch_norm`` and
-``--zero_redundancy_optimizer`` change nothing on one device, as in the
-JAX CLI without a mesh; ``--group_lowering`` and ``--remat`` are TPU
-knobs, kept in the config snapshot and read by nothing in the port.
+unless the caller asks for ``cpu``; a process takes ``cuda:LOCAL_RANK``
+unless ``--device`` names an index). Under torchrun the process group
+comes from the ``env://`` variables; ``--multihost 1`` starts it from the
+coordinator's address, as ``jax.distributed.initialize`` there. NCCL for
+CUDA, gloo for the CPU. The mesh is ``--mesh_data`` (0: the world over
+``--mesh_model``) x ``--mesh_model`` and must cover the world;
+``--batch_size`` is per data rank, so the global batch is
+``batch_size * n_data``, and each process loads its data index's shard.
+Rank 0 alone writes the config snapshot, args.txt, TensorBoard, history,
+checkpoints and exports. ``--sync_batch_norm`` changes nothing: the
+BatchNorm statistics are always the global batch's, as in the JAX
+package. ``--zero_redundancy_optimizer`` shards the Adam moments over the
+data ranks. ``--group_lowering`` and ``--remat`` are TPU knobs, kept in
+the config snapshot and read by nothing in the port. The device-cache
+tiers are single-process, as there.
 
 A run writes into ``<logdir>/<id>/``: config.json and args.txt, one
 train-state checkpoint directory per epoch (``<epoch>/``), history.json,
 the best-validation export ``best/`` (config.json, model_best.msgpack,
 EXPORT.json) and, at the end, ``model_<epoch>.msgpack`` of the best
-validation epoch: the inference weights both packages' agents load.
+validation epoch: the inference weights both packages' agents load. The
+files do not depend on the mesh: a checkpoint resumes at any mesh.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import os
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.sharding import (MeshSpec, full_state_dict, init_distributed,
+                                 is_chief, local_device, make_mesh)
 from .elastic import record
 
 
@@ -74,17 +91,17 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="Linear LR warmup in epochs; 0 disables.")
     p.add_argument("--no_bev_loss", type=int, default=0)
     p.add_argument("--sync_batch_norm", type=int, default=1,
-                   help="Global batch-norm statistics across data-parallel "
-                        "replicas; nothing to synchronise on one device.")
+                   help="Kept for the reference's surface; changes "
+                        "nothing: BatchNorm statistics are always the "
+                        "global batch's, as in the JAX package.")
     p.add_argument("--zero_redundancy_optimizer", type=int, default=1,
-                   help="Shard the optimizer state across data-parallel "
-                        "replicas; one device holds it whole.")
+                   help="ZeRO-1: partition the Adam moments over the data "
+                        "ranks; one device holds them whole.")
     p.add_argument("--mesh_data", type=int, default=0,
-                   help="Data-parallel axis size; 0 = this one device "
-                        "(more is not ported yet).")
+                   help="Data-parallel axis size; 0 = the processes over "
+                        "--mesh_model.")
     p.add_argument("--mesh_model", type=int, default=1,
-                   help="Tensor-parallel axis size for the fusion GPT "
-                        "(more than 1 is not ported yet).")
+                   help="Tensor-parallel axis size for the fusion GPT.")
     p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--max_restarts", type=int, default=3,
@@ -101,7 +118,10 @@ def build_argparser() -> argparse.ArgumentParser:
                         "rematerialization; recorded in the config, unused "
                         "by the port.")
     p.add_argument("--multihost", type=int, default=0,
-                   help="Multi-host training (not ported yet).")
+                   help="Start the process group from --coordinator_address"
+                        ", --num_processes and --process_id (tcp://), as "
+                        "the JAX CLI's jax.distributed.initialize; without "
+                        "it a torchrun launch is read from env://.")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="host:port of process 0 (multihost only).")
     p.add_argument("--num_processes", type=int, default=None)
@@ -173,58 +193,102 @@ def config_from_args(args: argparse.Namespace):
     return cfg.replace(model=model, loss=loss, train=train)
 
 
-def _refuse_unported(args: argparse.Namespace) -> None:
-    for flag, value in (("--mesh_data", args.mesh_data),
-                        ("--mesh_model", args.mesh_model)):
-        if value > 1:
-            raise SystemExit(
-                f"{flag} {value}: training on more than one device is not "
-                "ported yet (ROADMAP.md Queue 1 item 13)")
-    if args.multihost:
-        raise SystemExit("--multihost 1: multi-host training is not ported "
-                         "yet (ROADMAP.md Queue 1 item 13)")
+def _start(args: argparse.Namespace) -> Tuple[torch.device, bool]:
+    """This process's device, and whether this call started the process
+    group (``--multihost 1``, or torchrun's ``env://`` variables)."""
     if torch.device(args.device).type == "cuda" and \
             not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device here; pass "
                          "--device cpu to train on the CPU")
+    device = local_device(args.device)
+    if args.multihost:
+        if not args.coordinator_address or args.num_processes is None \
+                or args.process_id is None:
+            raise SystemExit("--multihost 1 needs --coordinator_address, "
+                             "--num_processes and --process_id")
+        init_distributed(device,
+                         init_method=f"tcp://{args.coordinator_address}",
+                         world_size=args.num_processes, rank=args.process_id)
+        return device, True
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        init_distributed(device)
+        return device, True
+    return device, False
+
+
+def _mesh_shape(args: argparse.Namespace, world: int) -> Tuple[int, int]:
+    model = max(args.mesh_model, 1)
+    n_data = args.mesh_data or max(world // model, 1)
+    if n_data * model != world:
+        raise SystemExit(f"mesh {n_data}x{model} needs {n_data * model} "
+                         f"processes; this run has {world}")
+    return n_data, model
+
+
+def _steps(loader, world: int):
+    """Under more than one process, ``len(loader)`` batches: the same count
+    on every data rank. The loader's shards are the JAX loader's, so where
+    the data ranks do not divide the set, the first shards hold one
+    sample more, and a rank with one batch more would wait for the others
+    in its collectives."""
+    if world == 1:
+        return iter(loader)
+    return itertools.islice(iter(loader), len(loader))
 
 
 def _export(path: str, trainer) -> None:
+    """Collective under tensor parallelism; rank 0 writes."""
     from .checkpoint import save_inference_weights
     from .jax_import import variables_from_state_dict
 
-    save_inference_weights(path, variables_from_state_dict(
-        trainer.model.state_dict(), trainer.config))
+    state = full_state_dict(trainer.model)
+    if is_chief():
+        save_inference_weights(path, variables_from_state_dict(
+            state, trainer.config))
 
 
 @record
 def main(argv: Optional[list] = None) -> dict:
     """Train; returns a summary of the run (history, checkpoint save
     times, loader figures) for callers that drive it in process."""
+    args = build_argparser().parse_args(argv)
+    device, started = _start(args)
+    try:
+        return _train(args, device)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, device: torch.device) -> dict:
     from ..data.dataset import CarlaDataset
     from ..data.loader import PrefetchLoader, pinned_put
     from .checkpoint import AsyncCheckpointWriter, save_config_snapshot
     from .trainer import Trainer
 
-    args = build_argparser().parse_args(argv)
-    _refuse_unported(args)
-    device = torch.device(args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_data, n_model = _mesh_shape(args, world)
+    chief = is_chief()
+    if (args.device_cache or args.echo_window) and world > 1:
+        raise SystemExit("device cache tiers are single-process only")
 
     cfg = config_from_args(args)
     logdir = os.path.join(args.logdir, args.id)
-    os.makedirs(logdir, exist_ok=True)
-    save_config_snapshot(logdir, cfg)
-    with open(os.path.join(logdir, "args.txt"), "w") as f:
-        json.dump(vars(args), f, indent=2)
-
     writer = None
-    try:
-        from tensorboardX import SummaryWriter
-        writer = SummaryWriter(logdir)
-    except Exception:
-        writer = None
-
-    print(f"device={device} processes=1 mesh=(1x1)")
+    if chief:
+        os.makedirs(logdir, exist_ok=True)
+        save_config_snapshot(logdir, cfg)
+        with open(os.path.join(logdir, "args.txt"), "w") as f:
+            json.dump(vars(args), f, indent=2)
+        try:
+            from tensorboardX import SummaryWriter
+            writer = SummaryWriter(logdir)
+        except Exception:
+            writer = None
+    mesh = make_mesh(MeshSpec(n_data, n_model)) if world > 1 else None
+    shard_rank = 0 if mesh is None else mesh.data_index
+    log = print if chief else (lambda *a, **k: None)
+    log(f"device={device} processes={world} mesh=({n_data}x{n_model})")
 
     train_dirs, val_dirs = cfg.resolve_splits()
     packed = args.wire == "packed"
@@ -236,13 +300,14 @@ def main(argv: Optional[list] = None) -> dict:
     train_set = CarlaDataset(train_dirs, cfg, packed=packed,
                              augment=False if use_device_cache else None)
     val_set = CarlaDataset(val_dirs, cfg, augment=False, packed=packed)
-    batch = args.batch_size
-    print(f"train samples={len(train_set)} val={len(val_set)} "
-          f"global_batch={batch} local_batch={batch}")
+    global_batch = args.batch_size * n_data
+    batch = global_batch // n_data
+    log(f"train samples={len(train_set)} val={len(val_set)} "
+        f"global_batch={global_batch} local_batch={batch}")
 
-    steps_per_epoch = max(1, len(train_set) // batch)
-    trainer = Trainer(cfg, steps_per_epoch=steps_per_epoch, device=device,
-                      seed=args.seed)
+    steps_per_epoch = max(1, len(train_set) // global_batch)
+    trainer = Trainer(cfg, mesh=mesh, steps_per_epoch=steps_per_epoch,
+                      device=device, seed=args.seed)
 
     # workers pin and copy their batches, so copies overlap both decode
     # and compute
@@ -268,10 +333,13 @@ def main(argv: Optional[list] = None) -> dict:
     else:
         train_loader = PrefetchLoader(train_set, batch, shuffle=True,
                                       num_workers=args.num_workers,
-                                      seed=args.seed, device_put=put)
+                                      seed=args.seed, device_put=put,
+                                      shard_rank=shard_rank,
+                                      shard_count=n_data)
     val_loader = PrefetchLoader(val_set, batch, shuffle=False,
                                 num_workers=args.num_workers,
-                                device_put=put)
+                                device_put=put, shard_rank=shard_rank,
+                                shard_count=n_data)
 
     # the JAX CLI draws an example batch here to shape its init; the
     # port's modules know their shapes, so the trainer already holds the
@@ -280,7 +348,7 @@ def main(argv: Optional[list] = None) -> dict:
     try:
         if args.load_epoch is not None:
             ckpt.restore(args.load_epoch, trainer.model, trainer.optimizer)
-            print(f"resumed from epoch {args.load_epoch}")
+            log(f"resumed from epoch {args.load_epoch}")
 
         # In-job elastic recovery (torchelastic restart semantics): a
         # failed epoch writes the structured error file, reloads the last
@@ -295,13 +363,13 @@ def main(argv: Optional[list] = None) -> dict:
                 train_loader.set_epoch(epoch)
                 t0 = time.time()
                 metrics = trainer.train_epoch(
-                    iter(train_loader),
+                    _steps(train_loader, world),
                     fetch_metrics=bool(args.per_step_metrics))
                 dt = time.time() - t0
                 sps = len(train_set) / max(dt, 1e-9)
-                print(f"epoch {epoch}: "
-                      f"loss={metrics.get('loss_total', 0):.4f} "
-                      f"({sps:.1f} samples/s)")
+                log(f"epoch {epoch}: "
+                    f"loss={metrics.get('loss_total', 0):.4f} "
+                    f"({sps:.1f} samples/s)")
                 if writer:
                     for k, v in metrics.items():
                         writer.add_scalar(k, v, epoch + 1)
@@ -316,11 +384,11 @@ def main(argv: Optional[list] = None) -> dict:
                 last = epoch == args.epochs - 1
                 if args.setting != "all" and len(val_set) > 0 and \
                         (epoch % args.val_every == 0 or last):
-                    val_metrics = trainer.validate(iter(val_loader))
-                    print(f"epoch {epoch}: val_loss="
-                          f"{val_metrics.get('val_loss_total', 0):.4f} "
-                          f"val_ade={val_metrics.get('val_ade', 0):.3f} "
-                          f"val_fde={val_metrics.get('val_fde', 0):.3f}")
+                    val_metrics = trainer.validate(_steps(val_loader, world))
+                    log(f"epoch {epoch}: val_loss="
+                        f"{val_metrics.get('val_loss_total', 0):.4f} "
+                        f"val_ade={val_metrics.get('val_ade', 0):.3f} "
+                        f"val_fde={val_metrics.get('val_fde', 0):.3f}")
                     if writer:
                         for k, v in val_metrics.items():
                             writer.add_scalar(k, v, epoch + 1)
@@ -336,17 +404,19 @@ def main(argv: Optional[list] = None) -> dict:
                         # keeps the final model_*.msgpack export from
                         # turning into a 2-member ensemble.
                         best_dir = os.path.join(logdir, "best")
-                        os.makedirs(best_dir, exist_ok=True)
-                        save_config_snapshot(best_dir, cfg)
+                        if chief:
+                            os.makedirs(best_dir, exist_ok=True)
+                            save_config_snapshot(best_dir, cfg)
                         _export(os.path.join(best_dir,
                                              "model_best.msgpack"), trainer)
-                        with open(os.path.join(best_dir, "EXPORT.json"),
-                                  "w") as f:
-                            json.dump({"epoch": epoch + 1,
-                                       "val_ade": best_val_ade,
-                                       "val_fde": float(
-                                           val_metrics.get("val_fde", 0.0)),
-                                       }, f, indent=1)
+                        if chief:
+                            with open(os.path.join(best_dir, "EXPORT.json"),
+                                      "w") as f:
+                                json.dump({"epoch": epoch + 1,
+                                           "val_ade": best_val_ade,
+                                           "val_fde": float(val_metrics.get(
+                                               "val_fde", 0.0)),
+                                           }, f, indent=1)
 
                 # the state is copied to the host here; the file is
                 # written while the next epoch trains
@@ -354,10 +424,12 @@ def main(argv: Optional[list] = None) -> dict:
                 ckpt.save(epoch + 1, trainer.model, trainer.optimizer)
                 last_saved = epoch + 1
                 history.append(epoch_row)
-                with open(os.path.join(logdir, "history.json"), "w") as f:
-                    json.dump({"best_val_ade": best_val_ade,
-                               "best_epoch": best_epoch,
-                               "per_epoch": history}, f, indent=1)
+                if chief:
+                    with open(os.path.join(logdir, "history.json"),
+                              "w") as f:
+                        json.dump({"best_val_ade": best_val_ade,
+                                   "best_epoch": best_epoch,
+                                   "per_epoch": history}, f, indent=1)
                 epoch += 1
             except Exception as exc:
                 from .elastic import write_error_file
@@ -389,8 +461,8 @@ def main(argv: Optional[list] = None) -> dict:
         if best_epoch is not None and best_epoch != epoch:
             ckpt.restore(best_epoch, trainer.model, trainer.optimizer)
             export_epoch = best_epoch
-            print(f"exporting best-val_ade checkpoint: epoch "
-                  f"{best_epoch} (val_ade {best_val_ade:.3f})")
+            log(f"exporting best-val_ade checkpoint: epoch "
+                f"{best_epoch} (val_ade {best_val_ade:.3f})")
         _export(os.path.join(logdir, f"model_{export_epoch}.msgpack"),
                 trainer)
     finally:

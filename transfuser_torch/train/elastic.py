@@ -11,17 +11,19 @@ callable; the error-file path comes from ``TPU_ELASTIC_ERROR_FILE`` (or
 ``TORCHELASTIC_ERROR_FILE`` for drop-in launcher compat), defaulting to
 ``crash_<pid>.json`` under the system temp dir. The process index is
 torch.distributed's rank when a process group is initialised, else taken
-from common launcher env vars.
+from common launcher env vars. The timestamp is in seconds since the
+epoch, which torchrun reads back from ``TORCHELASTIC_ERROR_FILE`` (the
+JAX package writes an ISO date there).
 """
 
 from __future__ import annotations
 
-import datetime
 import functools
 import json
 import os
 import socket
 import sys
+import time
 import traceback
 from typing import Any, Callable, Optional, TypeVar
 
@@ -60,7 +62,8 @@ def write_error_file(exc: BaseException,
             "extraInfo": {
                 "py_callstack": "".join(traceback.format_exception(
                     type(exc), exc, exc.__traceback__)),
-                "timestamp": datetime.datetime.now().isoformat(),
+                # seconds since the epoch, as torchrun parses it
+                "timestamp": str(int(time.time())),
             },
         },
         "rank": _process_index(),

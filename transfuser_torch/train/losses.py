@@ -18,13 +18,24 @@ import torch
 
 from ..config import GlobalConfig
 from ..ops import centernet as cn
+from ..parallel import comm
 
 
 def compute_losses(outputs: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor],
-                   config: GlobalConfig) -> Dict[str, torch.Tensor]:
+                   config: GlobalConfig,
+                   group: comm.Group = None) -> Dict[str, torch.Tensor]:
     """The detailed (unweighted) loss dict, in the reference's
-    ``detailed_losses`` order; needs the ``compute_aux`` maps."""
+    ``detailed_losses`` order; needs the ``compute_aux`` maps.
+
+    Under a data-parallel ``group`` (this rank holding its share of the
+    global batch) each term is this rank's share such that the group's
+    mean of a term is the global batch's term, and the group's mean of
+    the gradients is the global batch's gradient (what DDP's averaging
+    needs): the mean terms stay local means, and the sums are divided by
+    the group's mean normaliser (``avg_factor``, the BEV class weights):
+    the global normaliser over the group's size. ``global_losses`` takes
+    the mean."""
     cfg = config
     losses: Dict[str, torch.Tensor] = {}
     # waypoints: plain L1 (model.py:765)
@@ -34,7 +45,7 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
     bev_w = torch.tensor(cfg.loss.bev_class_weights, dtype=torch.float32,
                          device=outputs["pred_bev"].device)
     losses["loss_bev"] = cn.cross_entropy_mean(outputs["pred_bev"],
-                                               batch["bev"], bev_w)
+                                               batch["bev"], bev_w, group)
 
     labels = batch["label"]
     valid = labels.abs().sum(-1) > 0.0  # model.py:774
@@ -44,7 +55,7 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
         (cfg.sensors.lidar_resolution_height,
          cfg.sensors.lidar_resolution_width),
         num_dir_bins=cnc.num_dir_bins, min_overlap=cnc.gaussian_min_overlap,
-        min_radius=cnc.gaussian_min_radius)
+        min_radius=cnc.gaussian_min_radius, group=group)
     af = t.avg_factor
     w2 = t.weight[..., None].expand(-1, -1, -1, 2)
     losses["loss_center_heatmap"] = cn.gaussian_focal_loss(
@@ -56,13 +67,14 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
     ce_bb = cfg.loss.reference_ce_batch_broadcast
     losses["loss_yaw_class"] = cn.weighted_ce_loss(
         outputs["head_yaw_class"], t.yaw_class, t.weight, af,
-        batch_broadcast=ce_bb)
+        batch_broadcast=ce_bb, group=group)
     losses["loss_yaw_res"] = cn.weighted_smooth_l1_loss(
         outputs["head_yaw_res"][..., 0], t.yaw_res, t.weight, af)
     losses["loss_velocity"] = cn.weighted_l1_loss(
         outputs["head_velocity"][..., 0], t.velocity, t.weight, af)
     losses["loss_brake"] = cn.weighted_ce_loss(
-        outputs["head_brake"], t.brake, t.weight, af, batch_broadcast=ce_bb)
+        outputs["head_brake"], t.brake, t.weight, af, batch_broadcast=ce_bb,
+        group=group)
 
     # multitask aux losses (model.py:780-793)
     if cfg.model.multitask:
@@ -77,6 +89,20 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
         losses["loss_semantic"] = zero
         losses["loss_depth"] = zero
     return {name: losses[name] for name in cfg.loss.detailed_losses}
+
+
+def global_losses(detailed: Dict[str, torch.Tensor],
+                  group: comm.Group = None) -> Dict[str, torch.Tensor]:
+    """The data group's mean of each (detached) term: the global batch's
+    loss dict, equal on every rank. One all-reduce of the stacked terms."""
+    if comm.group_size(group) == 1:
+        return {k: v.detach() for k, v in detailed.items()}
+    dtype = torch.float32
+    for v in detailed.values():
+        dtype = torch.promote_types(dtype, v.dtype)
+    mean = comm.all_reduce_mean(torch.stack(
+        [v.detach().to(dtype) for v in detailed.values()]), group)
+    return dict(zip(detailed, mean.unbind()))
 
 
 def total_loss(detailed: Dict[str, torch.Tensor],

@@ -1,6 +1,10 @@
 """Evaluation metrics beyond the training losses (counterpart of
 transfuser_tpu/train/metrics.py): waypoint ADE/FDE, the accuracy
 acceptance metrics, and the CenterNet head's agreement with the labels.
+
+Under a data-parallel ``group`` the means (ADE, FDE) stay this rank's,
+whose group mean is the global batch's; the IoU's counts are summed over
+the group, so it is the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -8,6 +12,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from ..parallel import comm
 
 
 def waypoint_ade(pred_wp: torch.Tensor, gt_wp: torch.Tensor) -> torch.Tensor:
@@ -30,17 +36,20 @@ def heatmap_peak_agreement(pred_heatmap: torch.Tensor,
 
 
 def class_iou(pred: torch.Tensor, target: torch.Tensor,
-              cls: int) -> torch.Tensor:
+              cls: int, group: comm.Group = None) -> torch.Tensor:
     p = pred == cls
     t = target == cls
-    return (p & t).sum() / (p | t).sum().clamp(min=1)
+    counts = comm.all_reduce_sum(torch.stack([(p & t).sum(), (p | t).sum()]),
+                                 group)
+    return counts[0] / counts[1].clamp(min=1)
 
 
 def eval_metrics(outputs: Dict[str, torch.Tensor],
-                 batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                 batch: Dict[str, torch.Tensor],
+                 group: comm.Group = None) -> Dict[str, torch.Tensor]:
     out = {"ade": waypoint_ade(outputs["pred_wp"], batch["ego_waypoint"]),
            "fde": waypoint_fde(outputs["pred_wp"], batch["ego_waypoint"])}
     if "pred_bev" in outputs and "bev" in batch:
         pred = torch.argmax(outputs["pred_bev"], dim=-1)
-        out["bev_iou_road"] = class_iou(pred, batch["bev"], 1)
+        out["bev_iou_road"] = class_iou(pred, batch["bev"], 1, group)
     return out
