@@ -8,6 +8,14 @@ Phases, one JSON line each:
   build        nvcc builds every kernel under transfuser_torch/csrc, one
                process per source, all started together (ptxas register
                and spill lines printed)
+  native       g++ builds the port's native host library
+               (transfuser_torch/native/fastloader.cpp); each entry point
+               against its numpy version exactly (the LiDAR histogram on a
+               40,000-point cloud, with 4 columns and as the agent's
+               3-column view; the depth, semantic, BEV and crop decodes at
+               160x960; the PNG unfilter on a 160x960 strip with adaptive
+               row filters); the histogram timed against numpy and the PNG
+               decode against the Python unfilter loop, in turns
   launch_floor the device time of an empty kernel built the same way
   kernels      each kernel against its plain PyTorch version at the shapes
                the main path gives it, with the kernel's, the plain
@@ -26,12 +34,23 @@ Phases, one JSON line each:
                16 attention launches per forward, p50/p90 latency; the same
                weights in fp32 on the card and on the CPU (plain path)
   agent        HybridAgent from a model dir (config snapshot + .pth) drives
-               synthetic sensor frames: finite controls, p50 run_step
+               42 synthetic sensor frames (speed 0, so the model inputs do
+               not depend on the controls) in each timing mode, a fresh
+               agent from the same weights per run, in turns: synchronous,
+               pipelined_fetch, async_inference, then back. Finite
+               controls, p50 / p90 run_step per mode (pooled and per run),
+               16 attention launches per dispatched forward; each lagged
+               run's priming frame returns the held control, the lagged
+               runs' controls are equal, the lagged waypoints at compute
+               frame k equal the synchronous run's at k - 1 and the two
+               synchronous runs agree, bit for bit
   closed_loop  the port's evaluator (transfuser_torch.harness) drives the
                agent (one flagship member from a config snapshot + .pth,
                bf16) in process over a map-less 60 m route for 10 s of
-               sim time (200 ticks, 100 compute frames): route status
-               (any crashed status fails), driving score, route
+               sim time (200 ticks, 100 compute frames), with the
+               reference's timing and with async_inference in turns (sync,
+               async, async, sync), one line per run: route
+               status (any crashed status fails), driving score, route
                completion, ticks, compute frames, run_step p50/p90 per
                compute frame, and per tick the harness's own time, the
                camera render, the LiDAR synthesis and the criteria; at
@@ -84,8 +103,9 @@ Phases, one JSON line each:
                controls. Prints per run seconds, samples/s per epoch and
                peak memory, the checkpoint save times, the device-cache
                upload, the echo factor, the host decode ms per sample (one
-               epoch of the plain loader alone), and the PNG decode ms of a
-               160x960 strip with libpng-style adaptive row filters
+               epoch of the plain loader alone), and the PNG decode ms
+               (native unfilter) of a 160x960 strip with libpng-style
+               adaptive row filters
   lifecycle    datagen -> train -> closed loop on the grid town
                (grid:2x80x2) with 4 moving background vehicles, on two
                route_gen junction routes through its signalised junction:
@@ -106,6 +126,11 @@ Phases, one JSON line each:
                expert_benchmark) on 2 routes with its default town and 20
                vehicles: driving score and wall seconds. A crashed route
                fails the phase
+
+    python3 chip_smoke.py --only native agent closed_loop
+
+runs the named phases alone (after the build) and prints no result; the
+agent phases then use a seeded flagship member of their own.
 
 The main path's launches are counted in the agent, closed_loop,
 family_forward_ego, family_agent, geometric_train, pillars_forward_ego,
@@ -595,7 +620,7 @@ def phase_profile(model, cfg, n=5):
          **profile_calls(lambda: model.forward_ego(*args), n))
 
 
-def synthetic_sensor_frames(cfg, n, seed=1):
+def synthetic_sensor_frames(cfg, n, seed=1, speed=3.0):
     rng = np.random.default_rng(seed)
     h, w = cfg.sensors.img_resolution[0], cfg.sensors.img_width
     for i in range(n):
@@ -608,18 +633,52 @@ def synthetic_sensor_frames(cfg, n, seed=1):
             "rgb_left": (i, rng.integers(0, 256, (h, w, 4), np.uint8)),
             "rgb_right": (i, rng.integers(0, 256, (h, w, 4), np.uint8)),
             "gps": (i, np.array([x / 111324.60662786, 0.0, 0.0])),
-            "speed": (i, {"speed": 3.0}),
+            "speed": (i, {"speed": speed}),
             "imu": (i, np.array([0, 0, 9.8, 0, 0, 0, 0.0])),
             "lidar": (i, pts),
         }
 
 
-def phase_agent(cfg, state):
+def flagship_member():
+    """The flagship config and a seeded member's weights, for the agent
+    phases run alone (``--only agent closed_loop``); the whole run passes
+    phase_forward_ego's."""
+    from transfuser_torch.config import GlobalConfig
+    from transfuser_torch.models import LidarCenterNet
+
+    cfg = GlobalConfig()
+    model = LidarCenterNet(cfg, dtype=torch.float32, device="cpu", seed=0)
+    return cfg, {k: v.detach() for k, v in model.state_dict().items()}
+
+
+def with_mode(cfg, mode):
+    """cfg with the agent's timing mode ("sync", "pipelined_fetch" or
+    "async_inference") set in its controller."""
+    import dataclasses
+
+    flags = dict(pipelined_fetch=mode == "pipelined_fetch",
+                 async_inference=mode == "async_inference")
+    return cfg.replace(controller=dataclasses.replace(cfg.controller,
+                                                      **flags))
+
+
+AGENT_MODES = ("sync", "pipelined_fetch", "async_inference")
+AGENT_TURNS = AGENT_MODES + AGENT_MODES[::-1]
+HELD_CONTROL = [0.0, 0.0, 1.0]  # a fresh agent's control: full brake
+
+
+def agent_run(cfg, state, mode, frames):
+    """A fresh HybridAgent (one member from a config snapshot + .pth, its
+    timing mode from the snapshot) over the frames. Launches are counted
+    from frame 2 in the synchronous mode (frames 0-1 warm up) and from
+    frame 0 in the lagged ones, whose first compute frame dispatches the
+    priming forward (a worker thread may still run it at frame 2), up to
+    destroy(), which drains the worker. run_step times from frame 2."""
     from transfuser_torch.agents.hybrid_agent import HybridAgent
     from transfuser_torch.ops import kernels
 
     with tempfile.TemporaryDirectory() as model_dir:
-        cfg.save(os.path.join(model_dir, "config.json"))
+        with_mode(cfg, mode).save(os.path.join(model_dir, "config.json"))
         torch.save(state, os.path.join(model_dir, "model_0.pth"))
         t0 = time.perf_counter()
         agent = HybridAgent(model_dir)
@@ -627,34 +686,111 @@ def phase_agent(cfg, state):
     plan = [({"lat": x / 111324.60662786, "lon": 0.0}, 4)
             for x in range(0, 200, 10)]
     agent.set_global_plan(plan, [(float(x), 0.0) for x in range(0, 200, 10)])
-    frames = list(synthetic_sensor_frames(cfg, 42))  # 20 compute frames
-    for i, frame in enumerate(frames[:2]):  # warm-up compute frame
-        agent.run_step(frame, 0.05 * i)
+    repeat = cfg.controller.action_repeat
+    compute_ms, controls, wps = [], [], []
     torch.cuda.synchronize()
     kernels.reset_launches()           # the main path's run starts here
-    compute_ms, controls = [], []
-    for i, frame in enumerate(frames[2:], start=2):
-        compute = agent.step + 1
+    for i, frame in enumerate(frames):
+        if i == 2 and mode == "sync":
+            torch.cuda.synchronize()
+            kernels.reset_launches()   # ... after the warm-up frame
         t0 = time.perf_counter()
         control = agent.run_step(frame, 0.05 * i)
         wall = (time.perf_counter() - t0) * 1e3
-        if compute % cfg.controller.action_repeat == 0:
-            compute_ms.append(wall)
         controls.append([control.steer, control.throttle, control.brake])
+        if i % repeat == 0:
+            wps.append(None if agent.pred_wp is None
+                       else agent.pred_wp.copy())
+            if i >= 2:
+                compute_ms.append(wall)
+    agent.destroy()
+    torch.cuda.synchronize()
     launches = dict(kernels.launches)  # ... and ends here
     if not np.isfinite(controls).all():
-        raise AssertionError(f"non-finite controls {controls}")
-    expected = 16 * len(compute_ms) * agent.model_count
+        raise AssertionError(f"{mode}: non-finite controls {controls}")
+    dispatched = len(compute_ms) + (mode != "sync")
+    expected = 16 * dispatched * agent.model_count
     if launches["attention"] != expected:
-        raise AssertionError(f"agent made {launches['attention']} attention "
-                             f"launches, expected {expected}")
-    emit("agent", setup_s=setup_s, compute_frames=len(compute_ms),
-         run_step_p50_ms=float(np.percentile(compute_ms, 50)),
-         run_step_ms=compute_ms, launches=launches,
-         # random weights predict near-zero waypoints: the agent brakes,
-         # so steer and throttle are not exercised here
-         non_brake_frames=sum(c[2] < 0.5 for c in controls),
-         last_control=controls[-1], pred_wp=agent.pred_wp.tolist())
+        raise AssertionError(
+            f"{mode}: {launches['attention']} attention launches over "
+            f"{dispatched} dispatched forwards, expected {expected}")
+    return dict(setup_s=setup_s, controls=controls, wps=wps,
+                compute_ms=compute_ms, launches=launches,
+                dispatched=dispatched)
+
+
+def phase_agent(cfg=None, state=None):
+    """The flagship agent over 42 synthetic frames (21 compute frames) in
+    each timing mode, a fresh agent from the same weights per run, the
+    modes in turns (``AGENT_TURNS``) so that drift on the host falls on
+    each. The frames' speed is 0: the GPS buffer rolls each fix forward
+    through the bicycle model with the applied control times the speed,
+    so at 0 the model inputs do not depend on the controls, and compute
+    frame k of a lagged mode must drive with the synchronous run's
+    waypoints of compute frame k - 1, bit for bit (the same kernels on the
+    same inputs); the two synchronous runs must agree bit for bit too."""
+    if cfg is None:
+        cfg, state = flagship_member()
+    frames = list(synthetic_sensor_frames(cfg, 42, speed=0.0))
+    runs = [(mode, agent_run(cfg, state, mode, frames))
+            for mode in AGENT_TURNS]
+    sync_wps = runs[0][1]["wps"]
+    lagged_controls = None
+    for mode, run in runs:
+        if mode == "sync":
+            run["max_abs_err"] = max(float(np.abs(got - want).max())
+                                     for got, want in zip(run["wps"],
+                                                          sync_wps))
+        else:
+            if run["controls"][0] != HELD_CONTROL or \
+                    run["wps"][0] is not None:
+                raise AssertionError(f"{mode}: the priming frame returned "
+                                     f"{run['controls'][0]}, not the held "
+                                     "control")
+            if lagged_controls is None:
+                lagged_controls = run["controls"]
+            elif run["controls"] != lagged_controls:
+                raise AssertionError(f"{mode}: controls differ from the "
+                                     "other lagged runs'")
+            # compute frame k against the synchronous run's k - 1
+            run["max_abs_err"] = max(float(np.abs(got - want).max())
+                                     for got, want in zip(run["wps"][1:],
+                                                          sync_wps[:-1]))
+        if run["max_abs_err"] != 0.0:
+            raise AssertionError(f"{mode}: waypoints differ from the "
+                                 "synchronous run's (one compute frame "
+                                 f"earlier when lagged) by "
+                                 f"{run['max_abs_err']}")
+    launches = dict.fromkeys(runs[0][1]["launches"], 0)
+    fields = {}
+    for mode in AGENT_MODES:
+        mine = [run for m, run in runs if m == mode]
+        pooled = [ms for run in mine for ms in run["compute_ms"]]
+        per_run = {}
+        for run in mine:
+            for name, count in run["launches"].items():
+                launches[name] += count
+                per_run[name] = per_run.get(name, 0) + count
+        fields[mode] = dict(
+            runs=len(mine), setup_s=[run["setup_s"] for run in mine],
+            compute_frames=[len(run["compute_ms"]) for run in mine],
+            dispatched_forwards=[run["dispatched"] for run in mine],
+            run_step_p50_ms=float(np.percentile(pooled, 50)),
+            run_step_p90_ms=float(np.percentile(pooled, 90)),
+            run_step_p50_ms_per_run=[
+                float(np.percentile(run["compute_ms"], 50)) for run in mine],
+            run_step_ms=[run["compute_ms"] for run in mine],
+            launches=per_run,
+            max_abs_err=max(run["max_abs_err"] for run in mine),
+            # random weights predict near-zero waypoints: the agent
+            # brakes, so steer and throttle are not exercised here
+            non_brake_frames=[sum(c[2] < 0.5 for c in run["controls"])
+                              for run in mine],
+            last_control=mine[-1]["controls"][-1])
+    emit("agent", turns=list(AGENT_TURNS), modes=fields, launches=launches,
+         run_step_p50_ms={m: f["run_step_p50_ms"] for m, f in
+                          fields.items()},
+         pred_wp=sync_wps[-1].tolist())
     return launches
 
 
@@ -760,10 +896,10 @@ def closed_loop_fields(probe, results: str, launches: dict) -> dict:
         loop_s=loop_s, launches=launches)
 
 
-def phase_closed_loop(cfg, state, game_seconds=10.0):
-    """The port's evaluator drives HybridAgent (one flagship member, bf16)
-    over a map-less 60 m route for `game_seconds` of sim time, in
-    process."""
+def closed_loop_run(cfg, state, game_seconds, mode):
+    """The port's evaluator drives HybridAgent (one flagship member, bf16,
+    its timing mode from the config snapshot) over a map-less 60 m route
+    for `game_seconds` of sim time, in process."""
     from transfuser_torch.agents.hybrid_agent import HybridAgent
     from transfuser_torch.harness.evaluator import Evaluator, EvaluatorArgs
     from transfuser_torch.ops import kernels
@@ -772,7 +908,7 @@ def phase_closed_loop(cfg, state, game_seconds=10.0):
             closed_loop_probe() as probe:
         model_dir = os.path.join(work, "model")
         os.makedirs(model_dir)
-        cfg.save(os.path.join(model_dir, "config.json"))
+        with_mode(cfg, mode).save(os.path.join(model_dir, "config.json"))
         torch.save(state, os.path.join(model_dir, "model_0.pth"))
         routes = os.path.join(work, "routes.xml")
         with open(routes, "w") as f:
@@ -786,11 +922,30 @@ def phase_closed_loop(cfg, state, game_seconds=10.0):
             agent_factory=lambda c: HybridAgent(model_dir,
                                                 route_index=c.index),
             max_game_seconds=game_seconds, timeout=600.0,
-            print_route_table=False)).run()
+            print_route_table=False)).run()  # destroy() drains the worker
         wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
         launches = dict(kernels.launches)  # ... and ends here
         fields = closed_loop_fields(probe, results, launches)
-    emit("closed_loop", **fields, evaluator_s=wall)
+    emit("closed_loop", mode=mode, **fields, evaluator_s=wall)
+    return launches
+
+
+CLOSED_LOOP_TURNS = ("sync", "async_inference", "async_inference", "sync")
+
+
+def phase_closed_loop(cfg=None, state=None, game_seconds=10.0):
+    """The closed loop with the reference's timing and with
+    async_inference (every compute frame, the priming one included,
+    dispatches a forward on the worker), in turns (``CLOSED_LOOP_TURNS``)
+    so that drift on the host falls on both."""
+    if cfg is None:
+        cfg, state = flagship_member()
+    launches = {}
+    for mode in CLOSED_LOOP_TURNS:
+        for name, count in closed_loop_run(cfg, state, game_seconds,
+                                           mode).items():
+            launches[name] = launches.get(name, 0) + count
     return launches
 
 
@@ -1227,6 +1382,97 @@ def adaptive_png(img: np.ndarray) -> tuple:
                                               .tobytes(), 6)) +
             png._chunk(b"IEND", b""))
     return blob, np.bincount(kind, minlength=5).tolist()
+
+
+def interleaved_ms(fns: dict, rounds: int) -> dict:
+    """Median wall ms per call of each function, called in turns (A, B,
+    B, A, ...) so that drift on the host's clock falls on both."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for r in range(rounds):
+        for name in order if r % 2 == 0 else order[::-1]:
+            t0 = time.perf_counter()
+            fns[name]()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def phase_native():
+    """The port's native host library (transfuser_torch/native): built by
+    g++ here, each entry point held to its numpy version exactly, the
+    LiDAR histogram timed against numpy on a 40,000-point cloud (the
+    agent's (N, 3) float32 view) and the PNG decode timed against the
+    Python unfilter loop on a 160x960 strip with adaptive row filters."""
+    from transfuser_torch import native
+    from transfuser_torch.config import SEMANTIC_CONVERTER
+    from transfuser_torch.data import decoders, lidar_np, png
+
+    gxx = subprocess.run([native.compiler(), "--version"],
+                         capture_output=True, text=True).stdout
+    t0 = time.perf_counter()
+    cached = native.library_path().exists()
+    native.build()
+    build_s = time.perf_counter() - t0
+    native.load()
+
+    rng = np.random.default_rng(21)
+    cloud = np.concatenate([
+        rng.uniform(-30, 30, (40000, 2)), rng.uniform(-4, 1, (40000, 1)),
+        rng.uniform(0, 1, (40000, 1))], axis=1).astype(np.float32)
+    xyz = cloud[:, :3]
+    strip = np.clip(128 + np.cumsum(rng.normal(0, 3, (160, 960, 3)),
+                                    axis=1), 0, 255).astype(np.uint8)
+    blob, filters = adaptive_png(strip)
+    raw = rng.integers(0, 256, (160, 960, 3), dtype=np.uint8)
+    seg = rng.integers(0, len(SEMANTIC_CONVERTER), (160, 960),
+                       dtype=np.uint8)
+    lut = np.asarray(SEMANTIC_CONVERTER, np.uint8)
+    checks = {
+        "lidar_histogram_xyzi": (native.lidar_histogram(cloud),
+                                 lidar_np.lidar_to_histogram(
+                                     cloud, use_native=False)),
+        "lidar_histogram_xyz": (lidar_np.lidar_to_histogram(xyz),
+                                lidar_np.lidar_to_histogram(
+                                    xyz, use_native=False)),
+        "decode_depth": (native.decode_depth(raw),
+                         decoders.decode_depth(raw)),
+        "semantic_convert": (native.semantic_convert(seg, lut),
+                             decoders.convert_semantics(seg)),
+        "decode_bev_roadlane": (native.decode_bev_roadlane(raw),
+                                decoders.decode_bev_channels(raw)),
+        "crop_to_float": (native.crop_to_float(raw, (160, 704), 50.0),
+                          decoders.crop_image(raw, (160, 704), 50.0)
+                          .astype(np.float32)),
+        "png_unfilter": (png.decode(blob), strip),
+        "png_python_loop": (png.decode(blob, use_native=False), strip),
+    }
+    errs = {}
+    for name, (got, want) in checks.items():
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"native {name}: {got.shape} {got.dtype} "
+                                 f"vs {want.shape} {want.dtype}")
+        errs[name] = float(np.abs(got.astype(np.float64) -
+                                  want.astype(np.float64)).max())
+        if errs[name] != 0.0:
+            raise AssertionError(f"native {name} differs from numpy by "
+                                 f"{errs[name]}")
+    hist = interleaved_ms({
+        "native": lambda: lidar_np.lidar_to_histogram(xyz),
+        "numpy": lambda: lidar_np.lidar_to_histogram(xyz, use_native=False),
+    }, rounds=40)
+    decode = interleaved_ms({
+        "native": lambda: png.decode(blob),
+        "python": lambda: png.decode(blob, use_native=False),
+    }, rounds=6)
+    emit("native", compiler=gxx.splitlines()[0] if gxx else None,
+         build_s=build_s, was_built=cached, library=native.library_path().name,
+         max_abs_err=errs, lidar_points=len(cloud),
+         histogram_native_ms=hist["native"],
+         histogram_numpy_ms=hist["numpy"],
+         histogram_speedup=hist["numpy"] / hist["native"],
+         png_shape=list(strip.shape), png_rows_per_filter=filters,
+         png_native_ms=decode["native"], png_python_ms=decode["python"],
+         png_speedup=decode["python"] / decode["native"])
 
 
 def train_state_model(run_dir: str, epoch: int) -> dict:
@@ -2205,6 +2451,7 @@ def main() -> int:
         print("chip_smoke: partial run (--only), no result", file=sys.stderr)
         return 0
 
+    phase_native()
     floor_ms = phase_launch_floor()
     numbers = {"attention": phase_kernels()}
     gen = torch.Generator(device="cuda").manual_seed(1)

@@ -175,10 +175,16 @@ def test_agent_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="mixes reference .pth"):
         HybridAgent(model_dir, device="cpu")
     os.remove(os.path.join(model_dir, "model_1.msgpack"))
+    # a config snapshot with a lag mode on is accepted (the JAX package's
+    # trained evaluations turn async_inference on); the worker starts at
+    # the first compute frame and destroy() closes it
     ctrl = dataclasses.replace(cfg.controller, async_inference=True)
     save_config_snapshot(model_dir, cfg.replace(controller=ctrl))
-    with pytest.raises(NotImplementedError, match="async_inference"):
-        HybridAgent(model_dir, device="cpu")
+    agent = HybridAgent(model_dir, device="cpu")
+    assert agent.config.controller.async_inference
+    assert agent._worker is None
+    agent.destroy()
+    assert agent._worker is None
 
 
 def _port_files():

@@ -250,3 +250,58 @@ def test_render_matches_jax(monkeypatch):
     sem = ours[-3][..., 0]
     assert {port_sensors.ROAD, port_sensors.SKY} <= set(np.unique(sem))
     assert (sem == port_sensors.VEHICLE).any()
+
+
+def test_replay_recorded_frames_and_junction_hook_match_jax():
+    """ReplaySimulation(recorded_frames=...) replays the recorded sensor
+    dicts frame by frame and holds the last one; ``junction_fn`` answers
+    ``is_junction`` on a map-less sim; both as in the JAX package."""
+    from transfuser_tpu.sim.replay import ReplaySimulation as JaxSim
+    from transfuser_torch.sim.replay import ReplaySimulation as PortSim
+
+    recorded = [{"speed": {"speed": float(i)}, "tag": i} for i in range(3)]
+    seen = {}
+    for name, sim_cls, types in (("jax", JaxSim, jax_types),
+                                 ("port", PortSim, port_types)):
+        traj = [types.Transform(types.Location(x, 0.0))
+                for x in (0.0, 50.0)]
+        sim = sim_cls(traj, fps=20, recorded_frames=recorded,
+                      junction_fn=lambda loc: 10.0 <= loc.x <= 20.0)
+        frames, junctions = [], []
+        for x in (0.0, 15.0, 30.0, 12.0, 40.0):
+            frames.append(sim.sensor_frame())
+            junctions.append(sim.is_junction(types.Location(x, 0.0)))
+            sim.apply_control(types.VehicleControl(throttle=1.0))
+            sim.tick()
+        loc = sim.ego_location()
+        seen[name] = ([f["tag"] for f in frames], junctions,
+                      (loc.x, loc.y), sim.frame)
+        assert all(f is recorded[min(i, 2)] for i, f in enumerate(frames))
+        plain = sim_cls(traj, fps=20)  # no hook, no map: never a junction
+        assert not plain.is_junction(types.Location(15.0, 0.0))
+    assert seen["port"] == seen["jax"]
+    assert seen["port"][:2] == ([0, 1, 2, 2, 2],
+                                [False, True, False, True, False])
+
+
+def test_base_reader_feeds_a_sensor_interface():
+    """The pseudo-sensor thread delivers readings at its period through
+    the interface's barrier, numbered by frame, until stopped."""
+    from transfuser_torch.harness.sensor_interface import (BaseReader,
+                                                           SensorInterface)
+
+    interface = SensorInterface(timeout=5.0)
+    interface.register_sensor("speed", "sensor.speedometer")
+    count = iter(range(10 ** 6))
+    reader = BaseReader("speed", interface,
+                        lambda: {"speed": float(next(count))}, period=0.002)
+    assert reader.daemon
+    reader.start()
+    try:
+        got = [interface.get_data()["speed"] for _ in range(3)]
+    finally:
+        reader.stop()
+        reader.join(timeout=5.0)
+    assert not reader.is_alive()
+    assert [frame for frame, _ in got] == [0, 1, 2]
+    assert [data["speed"] for _, data in got] == [0.0, 1.0, 2.0]

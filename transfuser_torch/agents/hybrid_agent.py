@@ -25,18 +25,39 @@ LiDAR sensor and reads none: its histogram is zeros (the model replaces it
 with a positional grid); geometric_fusion computes the correspondences on
 the host from the frame's cloud.
 
+Timing modes (``ControllerConfig``, read on every frame, so a config
+swapped after ``setup`` holds):
+  * default: the reference's; the frame's forward runs and its outputs
+    come back (a full sync) before the control is computed;
+  * ``pipelined_fetch``: the frame's forward is dispatched and its outputs
+    are copied back without blocking (``non_blocking`` into a pinned
+    buffer, then a recorded event); the control comes from the forward
+    dispatched at the previous compute frame, whose event the frame
+    waits on alone;
+  * ``async_inference`` (takes precedence): ``_InferenceWorker``'s thread
+    runs the upload, the forwards and the copy back on a CUDA stream the
+    agent owns, and hands the previous compute frame's host result back.
+  Both lagged modes give the same controls: the first compute frame only
+  primes the pipe (it holds the last control and updates the GPS buffer
+  as a repeat frame does), and compute frame k drives with the forward
+  of compute frame k - 1. With a forward in flight while the next frame
+  packs, the frame buffers are two slots (pinned host, device, pinned
+  output), each reused only after its event says its last frame is done.
+  On the CPU there are no streams or events: copies are synchronous.
+
 Members of any backbone family from reference ``.pth`` files or natively
 trained ``model_*.msgpack`` files (the JAX package's inference format,
-written by either package's training CLI). ``pipelined_fetch`` and
-``async_inference`` are still to be ported (ROADMAP.md Queue 1 item 5) and
-raise.
+written by either package's training CLI).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
+import queue
+import threading
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -63,6 +84,63 @@ from ..train.jax_import import load_reference_checkpoint, state_dict_from_jax
 from .base import AutonomousAgent, Track
 
 _SCALARS = 16  # bytes at the head of the packed frame: tp x, tp y, speed
+_SLOTS = 2     # frame buffers: one frame in flight while the next packs
+
+
+class _InferenceWorker:
+    """One daemon thread that runs ``fn(slot)`` (upload, every member's
+    forward, copy back, wait) for the frames handed to it, under ``stream``
+    (None on the CPU), off the control thread.
+
+    ``submit(slot)`` hands compute frame N's slot over and returns frame
+    N-1's host result (None while priming): the one-frame lag of
+    ``pipelined_fetch``. An exception raised by ``fn`` is re-raised by the
+    next ``submit`` on the control thread. (Counterpart of the JAX agent's
+    ``_InferenceWorker``, transfuser_tpu/agents/hybrid_agent.py:54-107.)
+    """
+
+    def __init__(self, fn, stream=None):
+        self._fn = fn
+        self._stream = stream
+        self._in: "queue.Queue" = queue.Queue(maxsize=1)
+        self._out: "queue.Queue" = queue.Queue(maxsize=1)
+        self._pending = False
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="hybrid-agent-inference")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        ctx = (contextlib.nullcontext() if self._stream is None
+               else torch.cuda.stream(self._stream))
+        with ctx:
+            while True:
+                slot = self._in.get()
+                if slot is None:
+                    return
+                try:
+                    self._out.put(self._fn(slot))
+                except BaseException as e:  # re-raised on the control side
+                    self._out.put(e)
+
+    def submit(self, slot: int):
+        prev = None
+        if self._pending:
+            prev = self._out.get()
+            if isinstance(prev, BaseException):
+                self._pending = False
+                raise prev
+        self._in.put(slot)
+        self._pending = True
+        return prev
+
+    def close(self) -> None:
+        if self._pending:
+            self._out.get()
+            self._pending = False
+        self._in.put(None)
+        self._thread.join(timeout=30.0)
+        if self._thread.is_alive():
+            raise RuntimeError("the inference worker did not stop in 30 s")
 
 
 class HybridAgent(AutonomousAgent):
@@ -82,11 +160,6 @@ class HybridAgent(AutonomousAgent):
             self.config = GlobalConfig()
             weight_files = []
         ctrl = self.config.controller
-        if ctrl.pipelined_fetch or ctrl.async_inference:
-            raise NotImplementedError(
-                "pipelined_fetch / async_inference are not ported yet "
-                "(ROADMAP.md Queue 1 item 5); the port runs the synchronous "
-                "frame")
         n_pth = sum(p.endswith(".pth") for p in weight_files)
         if n_pth and not self.config.model.gpt.reference_view_unpack:
             # Reference torch checkpoints carry the GPT token-unpack view
@@ -137,6 +210,10 @@ class HybridAgent(AutonomousAgent):
         self.use_lidar_safe_check = True
         self.control = VehicleControl(brake=1.0)
         self.pred_wp: Optional[np.ndarray] = None
+        # the lagged modes: the slot of the last dispatched forward
+        # (pipelined_fetch), the worker thread (async_inference)
+        self._pending: Optional[int] = None
+        self._worker: Optional[_InferenceWorker] = None
 
     # ------------------------------------------------------------ frame I/O
     def _alloc_frame_buffers(self) -> None:
@@ -154,20 +231,30 @@ class HybridAgent(AutonomousAgent):
         self._geo_shapes = shapes[3:]
         sizes = [_SCALARS] + [int(np.prod(sh)) for sh in shapes]
         self._offsets = np.cumsum([0] + sizes)
-        pin = self.device.type == "cuda"
-        self._host = torch.empty(int(self._offsets[-1]), dtype=torch.uint8,
-                                 pin_memory=pin)
-        self._dev = torch.empty_like(self._host, device=self.device)
+        cuda = self.device.type == "cuda"
+        self._host = [torch.empty(int(self._offsets[-1]), dtype=torch.uint8,
+                                  pin_memory=cuda) for _ in range(_SLOTS)]
+        self._dev = [torch.empty_like(h, device=self.device)
+                     for h in self._host]
+        # the lagged modes' outputs, copied back without blocking (made at
+        # a slot's first lagged forward), and per slot the event recorded
+        # after that copy (a blocking one: a thread that waits on it sleeps
+        # instead of spinning on a core)
+        self._out: List[Optional[torch.Tensor]] = [None] * _SLOTS
+        self._done = [torch.cuda.Event(blocking=True) if cuda else None
+                      for _ in range(_SLOTS)]
+        self._slot = 0
 
-    def _infer(self, rgb: np.ndarray, lidar: np.ndarray, tpi: np.ndarray,
-               target_point: np.ndarray, speed: float,
-               geo: Tuple[np.ndarray, ...] = ()
-               ) -> Tuple[np.ndarray, np.ndarray]:
-        """One packed upload, every member's forward_ego, one copy back.
-        ``geo``: geometric_fusion's (bev_points, cam_points). Returns wp
-        (n_models, 1, 4, 2) and boxes (n_models, 1, k, 8)."""
+    def _pack(self, slot: int, rgb: np.ndarray, lidar: np.ndarray,
+              tpi: np.ndarray, target_point: np.ndarray, speed: float,
+              geo: Tuple[np.ndarray, ...] = ()) -> None:
+        """The frame's inputs into the slot's pinned host buffer, once the
+        slot's last upload has been read. ``geo``: geometric_fusion's
+        (bev_points, cam_points)."""
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()
         o = self._offsets
-        host = self._host.numpy()
+        host = self._host[slot].numpy()
         scal = np.zeros(_SCALARS // 4, np.float32)
         scal[:2] = target_point
         scal[2] = speed
@@ -177,8 +264,13 @@ class HybridAgent(AutonomousAgent):
         host[o[3]:o[4]] = tpi.reshape(-1)
         for j, pts in enumerate(geo):
             host[o[4 + j]:o[5 + j]] = pts.reshape(-1)
-        dev = self._dev
-        dev.copy_(self._host, non_blocking=True)
+
+    def _forward(self, slot: int) -> torch.Tensor:
+        """One packed upload of the slot, every member's forward_ego; the
+        waypoints and boxes of all members flattened, on the device."""
+        o = self._offsets
+        dev = self._dev[slot]
+        dev.copy_(self._host[slot], non_blocking=True)
         sc = dev[o[0]:o[1]].view(torch.float32)
         rgb_d = dev[o[1]:o[2]].reshape(self._rgb_shape).to(torch.float32)
         lidar_d = (dev[o[2]:o[3]].reshape(self._lidar_shape)
@@ -193,15 +285,62 @@ class HybridAgent(AutonomousAgent):
                                                    tpi_d, speed_d, *geo_d)
             outs += [wp.to(torch.float32).reshape(-1),
                      boxes.to(torch.float32).reshape(-1)]
-        flat = torch.cat(outs).cpu().numpy()  # the one device->host copy
-        n_wp = wp.numel()
-        per = n_wp + boxes.numel()
+        self._out_shapes = (tuple(wp.shape), tuple(boxes.shape))
+        return torch.cat(outs)
+
+    def _split(self, flat: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Flat outputs -> wp (n_models, 1, 4, 2), boxes (n_models, 1, k,
+        8)."""
+        wp_shape, boxes_shape = self._out_shapes
+        n_wp = int(np.prod(wp_shape))
+        per = n_wp + int(np.prod(boxes_shape))
         wps = np.stack([flat[m * per:m * per + n_wp]
                         for m in range(self.model_count)])
         bxs = np.stack([flat[m * per + n_wp:(m + 1) * per]
                         for m in range(self.model_count)])
-        return (wps.reshape((self.model_count,) + tuple(wp.shape)),
-                bxs.reshape((self.model_count,) + tuple(boxes.shape)))
+        return (wps.reshape((self.model_count,) + wp_shape),
+                bxs.reshape((self.model_count,) + boxes_shape))
+
+    def _infer(self, *frame) -> Tuple[np.ndarray, np.ndarray]:
+        """The reference's timing: pack, forward and the one device->host
+        copy, which waits for the device."""
+        self._pack(0, *frame)
+        return self._split(self._forward(0).cpu().numpy())
+
+    def _dispatch(self, slot: int) -> int:
+        """The packed slot's forward, its outputs copied back into the
+        slot's pinned output buffer without blocking, then the slot's event
+        recorded on the current stream."""
+        flat = self._forward(slot)
+        if self._out[slot] is None:
+            self._out[slot] = torch.empty(
+                flat.shape, dtype=flat.dtype,
+                pin_memory=self.device.type == "cuda")
+        self._out[slot].copy_(flat, non_blocking=True)
+        if self._done[slot] is not None:
+            self._done[slot].record()
+        return slot
+
+    def _fetch(self, slot: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The slot's outputs, after waiting on its event alone."""
+        if self._done[slot] is not None:
+            self._done[slot].synchronize()
+        return self._split(self._out[slot].numpy())
+
+    def _next_slot(self) -> int:
+        slot = self._slot
+        self._slot = (slot + 1) % _SLOTS
+        return slot
+
+    def _start_worker(self) -> _InferenceWorker:
+        """The async_inference worker, on a CUDA stream of its own that
+        first waits for the work that made the weights and buffers."""
+        stream = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.Stream(self.device)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+        return _InferenceWorker(
+            lambda slot: self._fetch(self._dispatch(slot)), stream)
 
     # -------------------------------------------------------------- sensors
     def sensors(self) -> List[Dict[str, Any]]:
@@ -348,8 +487,27 @@ class HybridAgent(AutonomousAgent):
             # uint8 upload carries them exactly
             geo = tuple(p.astype(np.uint8) for p in
                         lidar_cam_correspondences(tick_data["lidar"][:, :3]))
-        wp, boxes = self._infer(rgb, lidar_bev, tp_image, target_point,
-                                tick_data["speed"], geo)
+        frame = (rgb, lidar_bev, tp_image, target_point, tick_data["speed"],
+                 geo)
+        if ctrl.async_inference or ctrl.pipelined_fetch:
+            slot = self._next_slot()
+            self._pack(slot, *frame)
+            if ctrl.async_inference:
+                if self._worker is None:
+                    self._worker = self._start_worker()
+                out = self._worker.submit(slot)
+            else:
+                pending, self._pending = self._pending, self._dispatch(slot)
+                out = None if pending is None else self._fetch(pending)
+            if out is None:  # pipeline priming: hold the last control
+                self.gps_buffer.update(
+                    self.control.steer, self.control.throttle,
+                    self.control.brake > 0.5, tick_data["compass"],
+                    tick_data["speed"])
+                return self.control
+            wp, boxes = out
+        else:
+            wp, boxes = self._infer(*frame)
 
         # ensemble fusion
         pred_wp = wp.mean(axis=0)[0]   # mean over members
@@ -427,4 +585,7 @@ class HybridAgent(AutonomousAgent):
         return out
 
     def destroy(self) -> None:
+        if self._worker is not None:
+            self._worker.close()
+            self._worker = None
         self.members = []

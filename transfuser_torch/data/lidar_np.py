@@ -1,4 +1,5 @@
-"""(Copy of transfuser_tpu/data/lidar_np.py: the numpy paths only.)
+"""(Copy of transfuser_tpu/data/lidar_np.py; its native path is the port's
+own library, transfuser_torch/native/.)
 
 Host-side LiDAR preprocessing: ego-motion alignment + BEV histogram.
 
@@ -48,11 +49,21 @@ def align_lidar(lidar: np.ndarray, ego_matrix_from: np.ndarray,
     return out.astype(lidar.dtype) if lidar.dtype != np.float64 else out
 
 
-def lidar_to_histogram(lidar: np.ndarray, grid: int = GRID) -> np.ndarray:
+def lidar_to_histogram(lidar: np.ndarray, use_native: bool = True,
+                       grid: int = GRID) -> np.ndarray:
     """(N, 3+) points -> (grid, grid, 2) normalized two-slice histogram,
     NHWC channel order [above, below] matching the reference's channel
     stack. The metric window is fixed (32 m x 32 m); grid != 256 scales
-    pixels-per-meter accordingly (used by small-shape test configs)."""
+    pixels-per-meter accordingly (used by small-shape test configs).
+
+    At grid 256 it runs in the native library (native/fastloader.cpp),
+    which returns the numpy result exactly. The JAX package's rule also
+    asks for a fourth column, as its C reads rows of four floats; this
+    one reads rows of any width, so the agent's (N, 3) cloud takes it too.
+    ``use_native=False`` keeps the numpy path."""
+    if use_native and grid == GRID:
+        from .. import native
+        return native.lidar_histogram(lidar)
 
     def splat(points: np.ndarray) -> np.ndarray:
         xbins = np.linspace(-X_METERS_MAX, X_METERS_MAX, grid + 1)

@@ -8,17 +8,18 @@ BGR->RGB conversion.
 
 What it reads: 8- and 16-bit grayscale, RGB and RGBA, not interlaced,
 with any of the five row filters. Anything else (palette, gray+alpha,
-sub-byte depths, Adam7) raises ``ValueError``. None, Sub and Up rows are
-undone with whole-row numpy operations (Sub as a cumulative sum mod 256
-per byte lane); Average and Paeth depend on the pixel to their left as
-decoded, so those rows are undone byte by byte in Python. Writers with
-adaptive filtering (libpng's default, which OpenCV uses) pick Average and
-Paeth for many rows, and such files pay that loop.
+sub-byte depths, Adam7) raises ``ValueError``. zlib inflates the data;
+the port's native library (``native.png_unfilter``) then undoes the row
+filters. ``use_native=False`` undoes them here instead: None, Sub and Up
+rows with whole-row numpy operations (Sub as a cumulative sum mod 256 per
+byte lane), Average and Paeth byte by byte in Python, as they depend on
+the pixel to their left as decoded. Writers with adaptive filtering
+(libpng's default, which OpenCV uses) pick Average and Paeth for many
+rows, and such files pay that loop on the numpy path.
 
 ``write`` stores filter None (type 0 on every row) at the given zlib
 level.
 """
-
 from __future__ import annotations
 
 import struct
@@ -35,7 +36,7 @@ def read(path: str) -> np.ndarray:
         return decode(f.read())
 
 
-def decode(data: bytes) -> np.ndarray:
+def decode(data: bytes, use_native: bool = True) -> np.ndarray:
     """PNG bytes -> (H, W) or (H, W, C) uint8 / uint16 array."""
     if data[:8] != _SIGNATURE:
         raise ValueError("not a PNG file")
@@ -65,7 +66,11 @@ def decode(data: bytes) -> np.ndarray:
         raise ValueError(f"PNG data holds {raw.size} bytes, expected "
                          f"{h * (stride + 1)}")
     raw = raw.reshape(h, stride + 1)
-    pix = _unfilter(raw[:, 0], raw[:, 1:], bpp)
+    if use_native:
+        from .. import native
+        pix = native.png_unfilter(raw, bpp)
+    else:
+        pix = _unfilter(raw[:, 0], raw[:, 1:], bpp)
     if depth == 16:
         pix = pix.view(">u2").astype(np.uint16)
     return pix.reshape((h, w) if channels == 1 else (h, w, channels))

@@ -1,16 +1,18 @@
-"""(Copy of transfuser_tpu/harness/sensor_interface.py without the threaded pseudo-sensor reader.)
+"""(Copy of transfuser_tpu/harness/sensor_interface.py.)
 
 Sensor gather barrier: callbacks from (real or replay) sensors funnel
 into a queue; get_data blocks until every registered sensor delivered the
 current frame.
 
 Behavioral spec: leaderboard/envs/sensor_interface.py:198-243 (queue
-barrier, 10 s timeout -> SensorReceivedNoData, opendrive-map exemption).
+barrier, 10 s timeout -> SensorReceivedNoData, opendrive-map exemption) and
+the threaded pseudo-sensor readers (:16-88).
 """
 
 from __future__ import annotations
 
 import queue
+import threading
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -119,3 +121,29 @@ class SensorInterface:
             data_dict[tag] = _LazyEntry(frame, data) if lazy \
                 else (frame, data)
         return data_dict
+
+
+class BaseReader(threading.Thread):
+    """Daemon thread producing pseudo-sensor readings at a fixed rate
+    (speedometer, opendrive map)."""
+
+    def __init__(self, tag: str, interface: SensorInterface,
+                 read_fn: Callable[[], Any], period: float):
+        super().__init__(daemon=True)
+        self._tag = tag
+        self._interface = interface
+        self._read_fn = read_fn
+        self._period = period
+        self._running = True
+        self._frame = 0
+
+    def run(self) -> None:
+        while self._running:
+            data = self._read_fn()
+            if data is not None:
+                self._interface.update_sensor(self._tag, data, self._frame)
+                self._frame += 1
+            time.sleep(self._period)
+
+    def stop(self) -> None:
+        self._running = False

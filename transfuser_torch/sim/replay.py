@@ -1,14 +1,17 @@
-"""(Copy of transfuser_tpu/sim/replay.py without recorded-frame replay and
-the unused ``junction_fn`` hook of the map-less junction query.)
+"""(Copy of transfuser_tpu/sim/replay.py.)
 
 Hermetic simulation backend.
 
 Stands in for the CARLA server + TCP client (SURVEY.md §2.10): the same
 harness/agent stack runs against either this backend or a live CARLA
-adapter. The ego integrates a kinematic bicycle model; sensors return
-procedurally generated frames; scripted NPC actors follow waypoint
-tracks. Enough to exercise the full evaluator/criteria/scoring path
-end-to-end without the 10 GB simulator.
+adapter. Two modes:
+
+  * synthetic: ego integrates a kinematic bicycle model; sensors return
+    procedurally generated frames; scripted NPC actors follow waypoint
+    tracks. Enough to exercise the full evaluator/criteria/scoring path
+    end-to-end without the 10 GB simulator.
+  * replay: sensor dicts recorded from a real run are replayed frame by
+    frame (agent-behavior golden tests).
 """
 
 from __future__ import annotations
@@ -68,9 +71,11 @@ class ReplaySimulation:
 
     def __init__(self, trajectory: Sequence[Transform], fps: int = 20,
                  actors: Optional[List[Actor]] = None,
+                 recorded_frames: Optional[List[Dict[str, Any]]] = None,
                  seed: int = 0,
                  camera_shape: Tuple[int, int] = (480, 960),
                  lidar_points: int = 2000,
+                 junction_fn=None,
                  gnss_noise: Optional[Dict[str, float]] = None,
                  imu_noise: Optional[Dict[str, float]] = None,
                  lidar_dropoff: float = 0.0,
@@ -81,6 +86,7 @@ class ReplaySimulation:
         self.game_time = 0.0
         self.trajectory = list(trajectory)
         self.actors: List[Actor] = actors or []
+        self.recorded = recorded_frames
         self._rng = np.random.default_rng(seed)
         self._camera_shape = camera_shape
         self._lidar_points = lidar_points
@@ -96,6 +102,7 @@ class ReplaySimulation:
         self._last_control = VehicleControl()
         self.applied_control = VehicleControl()
         self.collision_events: List[Actor] = []
+        self._junction_fn = junction_fn
         # Pinned leaderboard sensor noise profiles
         # (agent_wrapper_local.py:125-184): applied by the backend's sensor
         # synthesis, so GPS denoising / lidar robustness are exercised.
@@ -132,7 +139,9 @@ class ReplaySimulation:
         """Map query stand-in (the live adapter asks the OpenDRIVE map)."""
         if self.town_map is not None:
             return bool(self.town_map.is_junction(location.x, location.y))
-        return False
+        if self._junction_fn is None:
+            return False
+        return bool(self._junction_fn(location))
 
     # -------------------------------------------------------------- control
     def apply_control(self, control: VehicleControl) -> None:
@@ -227,6 +236,9 @@ class ReplaySimulation:
         expert uses only imu/gnss/speed) never pay for it. Synthesizing
         three unread camera frames per tick was ~25% of dense-traffic
         benchmark wall-clock."""
+        if self.recorded is not None:
+            idx = min(self.frame, len(self.recorded) - 1)
+            return self.recorded[idx]
         h, w = self._camera_shape
 
         def make_rgb():
@@ -336,5 +348,8 @@ class ReplaySimulation:
         return data
 
     # ------------------------------------------------------------ inspection
+    def ego_location(self) -> Location:
+        return self.ego_transform.location
+
     def actors_of_type(self, prefix: str) -> List[Actor]:
         return [a for a in self.actors if a.type_id.startswith(prefix)]
