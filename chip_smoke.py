@@ -28,7 +28,13 @@ Phases, one JSON line each:
                in bf16 and fp32 (tolerances below), the pillar scatter-max
                exactly (max abs error 0) and its backward against a plain
                tie-splitting version (rtol 1e-6); and the attention wrapper
-               refusing a CUDA input that needs a gradient
+               refusing a CUDA input that needs a gradient; then fp32
+               attention at the shapes and layouts its tiling must mask
+               (D = 1, 3, 17, 512; T = 1, 17, 1024; batch 3; inputs one
+               float into a buffer; a permuted view), with each row's and
+               the plain version's error against fp64, and the attention
+               device time of one flagship forward per dtype (4 x the
+               main-path rows) beside SDPA's
   forward_ego  the flagship config (regnety_032 both branches, 160x704
                RGB, 256x256 LiDAR) at seeded random init, batch 1, bf16:
                16 attention launches per forward, p50/p90 latency; the same
@@ -173,6 +179,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS = 495e12                # tensor cores, dense
 
 ATTN_MAIN_SHAPES = [(1, 174, 4, d) for d in (18, 54, 144, 378)]
 ATTN_EXTRA_SHAPES = [(2, 174, 4, 18), (1, 200, 4, 40)]
@@ -180,6 +187,24 @@ ATTN_EXTRA_SHAPES = [(2, 174, 4, 18), (1, 200, 4, 40)]
 # the parallel phase's global batch of 4
 ATTN_TP_SHAPES = {(4, 174, 2, d): "flagship eval step at --mesh_model 2, "
                   "per rank" for d in (18, 54, 144, 378)}
+# fp32 shapes and layouts the split-TF32 tiling must mask, after the rows
+# above: (what it checks, shape, layout); "offset" views start one float
+# into a buffer (only 4-byte aligned), "permuted" ones are a (B, H, T, D)
+# tensor seen as (B, T, H, D)
+ATTN_F32_EDGE_CASES = [
+    ("D=1", (1, 174, 4, 1), "dense"),
+    ("D=3", (1, 174, 4, 3), "dense"),
+    ("D=17", (1, 174, 4, 17), "dense"),
+    ("D=512", (1, 174, 4, 512), "dense"),
+    ("T=1", (1, 1, 4, 64), "dense"),
+    ("T=17", (1, 17, 4, 64), "dense"),
+    ("T=1024", (1, 1024, 4, 64), "dense"),
+    ("T=1024, D=512", (1, 1024, 2, 512), "dense"),
+    ("batch 3", (3, 174, 4, 54), "dense"),
+    ("one float into a buffer", (1, 174, 4, 54), "offset"),
+    ("one float into a buffer, odd D", (2, 17, 3, 17), "offset"),
+    ("(B, H, T, D) permuted to (B, T, H, D)", (1, 174, 4, 54), "permuted"),
+]
 # the GPT stages' head dims (stage width / 4 heads) of the other trunks
 ATTN_FAMILY_SHAPES = {
     (1, 174, 4, 16): "transFuser resnet34/resnet18 stage 1",
@@ -216,9 +241,10 @@ SCATTER_LINE_CASE = "pillar_b12"  # the train step's launch
 
 
 def attention_tol(dtype, want: torch.Tensor) -> float:
-    """fp32: only the summation order differs, 1e-5. bf16: the two fp32
-    results may round to neighbouring bf16 values, one bf16 ulp (2^-7
-    relative) at the output's largest magnitude."""
+    """fp32: the summation order and the kernel's split-TF32 products
+    (about 2^-22 relative) differ, 1e-5. bf16: the two fp32 results may
+    round to neighbouring bf16 values, one bf16 ulp (2^-7 relative) at the
+    output's largest magnitude."""
     if dtype == torch.float32:
         return 1e-5
     return float(want.float().abs().max()) * 2.0 ** -7
@@ -315,12 +341,40 @@ def phase_launch_floor():
 
 
 def attention_bound_ms(shape, dtype) -> tuple:
+    """(bound, "bytes" or "operations", the rate the operations were
+    counted at). fp32 takes the lesser of two operation times: on the CUDA
+    cores (67 TFLOP/s) and as split TF32, three TF32 products on the
+    tensor cores (495 TFLOP/s)."""
     b, t, h, d = shape
     nbytes = 4 * b * t * h * d * torch.tensor([], dtype=dtype).element_size()
     flops = 4 * b * h * t * t * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    rate = ("bf16 tensor cores, 989 TFLOP/s" if dtype == torch.bfloat16
+            else "fp32 CUDA cores, 67 TFLOP/s")
+    if dtype == torch.float32 and 3 * flops / TF32_FLOPS * 1e3 < t_ops:
+        t_ops = 3 * flops / TF32_FLOPS * 1e3
+        rate = "split TF32: 3 TF32 products at 495 TFLOP/s"
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", rate
+    return t_ops, "operations", rate
+
+
+def attention_inputs(shape, layout, gen, dtype):
+    """Seeded q, k, v of a (B, T, H, D) shape: dense, one float into a
+    buffer ("offset"), or a (B, H, T, D) tensor permuted ("permuted")."""
+    def one():
+        if layout == "offset":
+            flat = torch.randn(math.prod(shape) + 1, generator=gen,
+                               device="cuda")
+            return flat[1:].view(shape)
+        if layout == "permuted":
+            b, t, h, d = shape
+            return torch.randn((b, h, t, d), generator=gen,
+                               device="cuda").transpose(1, 2)
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return [one().to(dtype) for _ in range(3)]
 
 
 def scatter_inputs(batch, n, c, segments, kind, gen):
@@ -421,51 +475,69 @@ def check_attention_refuses_grad(gen):
                          "with no backward for an input that needs a grad")
 
 
-def phase_kernels():
+def attention_row(q, k, v, **fields) -> dict:
+    """Check the kernel against its plain version on q, k, v (raises past
+    the tolerance) and time it, the plain version and SDPA."""
     import torch.nn.functional as F
 
     from transfuser_torch.ops.attention import attention, reference_attention
 
+    shape, dtype = tuple(q.shape), q.dtype
+    got = attention(q, k, v)
+    torch.cuda.synchronize()
+    want = reference_attention(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    tol = attention_tol(dtype, want)
+    if not err <= tol:
+        raise AssertionError(f"attention {shape} {dtype} {fields}: max abs "
+                             f"err {err} > {tol}")
+    # both fp32 paths against fp64: shows each one's own error
+    exact = reference_attention(q.double(), k.double(), v.double())
+    err64 = float((got.double() - exact).abs().max())
+    plain64 = float((want.double() - exact).abs().max())
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    bound, bound_by, ops_rate = attention_bound_ms(shape, dtype)
+    kernel = lambda: attention(q, k, v)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt)
+    return dict(
+        shape=list(shape), dtype=str(dtype).split(".")[-1],
+        max_abs_err=err, tol=tol, max_abs_err_vs_fp64=err64,
+        plain_max_abs_err_vs_fp64=plain64,
+        ms=cuda_ms(kernel), device_ms=device_time(kernel)[0],
+        host_ms=host_ms(kernel),
+        plain_ms=cuda_ms(lambda: reference_attention(q, k, v)),
+        library_ms=cuda_ms(library),
+        library_device_ms=device_time(library)[0],
+        bound_ms=bound, bound_by=bound_by, ops_rate=ops_rate, **fields)
+
+
+def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    max_err = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (ATTN_MAIN_SHAPES + ATTN_EXTRA_SHAPES +
                       list(ATTN_FAMILY_SHAPES) + list(ATTN_TP_SHAPES)):
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype) for _ in range(3))
-            got = attention(q, k, v)
-            torch.cuda.synchronize()
-            want = reference_attention(q, k, v)
-            err = float((got.float() - want.float()).abs().max())
-            tol = attention_tol(dtype, want)
-            if not err <= tol:
-                raise AssertionError(f"attention {shape} {dtype}: max abs "
-                                     f"err {err} > {tol}")
-            max_err = max(max_err, err)
-            # both fp32 paths against fp64: shows each one's own error
-            exact = reference_attention(q.double(), k.double(), v.double())
-            err64 = float((got.double() - exact).abs().max())
-            plain64 = float((want.double() - exact).abs().max())
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            bound, bound_by = attention_bound_ms(shape, dtype)
-            kernel = lambda: attention(q, k, v)  # noqa: E731
-            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt)
-            rows.append(dict(
-                shape=list(shape), dtype=str(dtype).split(".")[-1],
-                max_abs_err=err, tol=tol, max_abs_err_vs_fp64=err64,
-                plain_max_abs_err_vs_fp64=plain64,
-                ms=cuda_ms(kernel), device_ms=device_time(kernel)[0],
-                host_ms=host_ms(kernel),
-                plain_ms=cuda_ms(lambda: reference_attention(q, k, v)),
-                library_ms=cuda_ms(library),
-                library_device_ms=device_time(library)[0],
-                bound_ms=bound, bound_by=bound_by,
-                main_path=shape in ATTN_MAIN_SHAPES,
+            rows.append(attention_row(
+                q, k, v, main_path=shape in ATTN_MAIN_SHAPES,
                 used_by=ATTN_FAMILY_SHAPES.get(shape,
                                                ATTN_TP_SHAPES.get(shape))))
-    emit("kernels", kernels=["attention"], attention=rows)
+    for name, shape, layout in ATTN_F32_EDGE_CASES:
+        q, k, v = attention_inputs(shape, layout, gen, torch.float32)
+        rows.append(attention_row(q, k, v, main_path=False, edge=name,
+                                  strides=list(q.stride())))
+    max_err = max(r["max_abs_err"] for r in rows)
+    # one forward_ego launches each main-path shape 4 times (4 GPT layers)
+    per_forward = {}
+    for dtype in ("bfloat16", "float32"):
+        main = [r for r in rows if r["main_path"] and r["dtype"] == dtype]
+        per_forward[dtype] = 4 * sum(r["device_ms"] for r in main)
+        per_forward[f"sdpa_{dtype}"] = 4 * sum(r["library_device_ms"]
+                                               for r in main)
+    emit("kernels", kernels=["attention"], attention=rows,
+         forward_ego_attention_device_ms=per_forward)
     # the kernel's line: the four shapes one forward_ego gives it (each
     # 4 times, once per GPT layer), bf16, one launch of each
     main = [r for r in rows if r["main_path"] and r["dtype"] == "bfloat16"]

@@ -1,8 +1,9 @@
 """The port's attention vs the Pallas TPU kernel (interpret mode on the CPU)
-and the JAX einsum reference, in fp32; and the bf16 kernel's tensor-core
-arithmetic, emulated in plain torch, vs the plain version. The CUDA kernel
-itself is held to its plain version on a card in
-tests/test_torch_kernels_cuda.py."""
+and the JAX einsum reference, in fp32; and the kernel's tensor-core
+arithmetic, emulated in plain torch, vs the plain version: bf16 operands
+with a split P, and fp32 as split TF32. The CUDA kernel itself is held to
+its plain version on a card in tests/test_torch_kernels_cuda.py and in
+chip_smoke.py's kernels phase."""
 
 import math
 
@@ -111,6 +112,97 @@ def test_single_bf16_probabilities_lose_what_the_split_keeps(shape):
     assert single > 16 * split
 
 
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero (on the fp32 bits: add half of the 13
+    dropped bits' range to the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split_tf32_emulation(q, k, v, split=True):
+    """The fp32 kernel's arithmetic (csrc/attention.cu, attention_tc_f32)
+    in plain torch: D zero-padded and keys padded to multiples of 8, the
+    padded keys masked, each operand of q.k and P.V split into big =
+    tf32(x) and small = tf32(x - big), three products (big.big, big.small,
+    small.big) with fp32 sums, an exact softmax; with split=False one TF32
+    product."""
+    b, t, h, d = q.shape
+    dp, tp = -(-d // 8) * 8, -(-t // 8) * 8
+
+    def padded(x, rows):  # (B, T, H, D) -> (B, H, rows, dp) fp32
+        return F.pad(x.permute(0, 2, 1, 3).float(),
+                     (0, dp - d, 0, rows - t))
+
+    def product(x, y):
+        xb, yb = _tf32(x), _tf32(y)
+        out = xb @ yb
+        if split:
+            out = out + (xb @ _tf32(y - yb) + _tf32(x - xb) @ yb)
+        return out
+
+    qp, kp, vp = padded(q, t), padded(k, tp), padded(v, tp)
+    logits = product(qp, kp.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    logits[..., t:] = float("-inf")
+    out = product(torch.softmax(logits, dim=-1), vp)
+    return out[..., :d].permute(0, 2, 1, 3)
+
+
+def _fp32(shape, seed):
+    return [torch.from_numpy(a) for a in _qkv(shape, seed)]
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    """The emulation's rounding keeps 10 mantissa bits, rounds to the
+    nearer TF32 value and a tie away from zero, as cvt.rna does."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -20,
+                      one + 3 * ulp / 4, 3.0, 0.0])
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + ulp, 3.0, 0.0])
+    assert torch.equal(_tf32(x), want)
+
+
+SPLIT_SHAPES = MAIN_SHAPES + [(1, 174, 4, 512), (2, 1024, 1, 64)]
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES, ids=str)
+def test_split_tf32_arithmetic_within_fp32_tolerance(shape):
+    """The split-TF32 design meets the kernel's fp32 tolerance against
+    the plain version (1e-5, as chip_smoke.py holds the card to), and is
+    within 4e-6 of the fp64 result."""
+    q, k, v = _fp32(shape, seed=sum(shape) + 2)
+    emulated = _split_tf32_emulation(q, k, v)
+    want = reference_attention(q, k, v)
+    assert float((emulated - want).abs().max()) <= 1e-5
+    exact = reference_attention(q.double(), k.double(), v.double())
+    assert float((emulated.double() - exact).abs().max()) <= 4e-6
+
+
+@pytest.mark.parametrize("shape", MAIN_SHAPES, ids=str)
+def test_single_tf32_loses_what_the_split_keeps(shape):
+    """Why the kernel splits: one TF32 product errs more than 16 times as
+    much as the split, against fp64."""
+    q, k, v = _fp32(shape, seed=sum(shape) + 3)
+    exact = reference_attention(q.double(), k.double(), v.double())
+    split = float((_split_tf32_emulation(q, k, v).double() -
+                   exact).abs().max())
+    single = float((_split_tf32_emulation(q, k, v, split=False).double() -
+                    exact).abs().max())
+    assert single > 16 * split
+
+
+def test_ablation_variants_still_match_the_kernel_source():
+    """tools/attention_ablation.py cuts parts out of csrc/attention.cu by
+    text substitution: each must still match the source exactly once,
+    and each variant differs from the kernel."""
+    from transfuser_torch.tools import attention_ablation
+
+    sources = attention_ablation.variant_sources()
+    assert set(sources) == set(attention_ablation.VARIANTS)
+    assert len(set(sources.values())) == len(sources)
+
+
 @pytest.mark.parametrize("bad", ["shape", "dtype", "T", "D", "stride",
                                  "bf16_odd_D", "bf16_odd_stride"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
@@ -149,3 +241,18 @@ def test_bf16_rows_of_two_head_shards_are_readable(d):
     assert (staged is q) == (2 * d % 8 == 0)
     four = torch.randn(1, 174, 4, d).bfloat16()
     assert _bf16_rows(four) is four
+
+
+if __name__ == "__main__":
+    # the emulated errors quoted in csrc/attention.cu's header
+    for d in (16, 18, 54, 144, 256, 378, 512):
+        shape = (1, 174, 4, d)
+        q, k, v = _fp32(shape, seed=sum(shape) + 2)
+        want = reference_attention(q, k, v)
+        exact = reference_attention(q.double(), k.double(), v.double())
+        split = _split_tf32_emulation(q, k, v)
+        single = _split_tf32_emulation(q, k, v, split=False)
+        print(f"D={d}: split vs plain {float((split - want).abs().max()):.2e}"
+              f", vs fp64 {float((split.double() - exact).abs().max()):.2e}"
+              f"; plain vs fp64 {float((want.double() - exact).abs().max()):.2e}"
+              f"; one TF32 vs plain {float((single - want).abs().max()):.2e}")

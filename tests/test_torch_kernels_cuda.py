@@ -6,14 +6,16 @@ package, so it runs where only the port's dependencies are installed:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 
 Tolerances are chip_smoke.py's: attention fp32 1e-5 (summation order
-only), bf16 one bf16 ulp at the output's largest magnitude; the
-scatter-max equal bit for bit. Each call launches its kernel exactly once.
+and the split-TF32 products), bf16 one bf16 ulp at the output's largest
+magnitude; the scatter-max equal bit for bit. Each call launches its
+kernel exactly once. The fp32 edge cases are chip_smoke.py's own.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ATTN_F32_EDGE_CASES, attention_inputs
 from transfuser_torch.ops import kernels
 from transfuser_torch.ops import pillars as tp
 from transfuser_torch.ops.attention import attention, reference_attention
@@ -77,6 +79,28 @@ def test_attention_kernel_at_the_other_trunks_head_dims_on_card(d, dtype):
     else:
         rtol, atol = 0.0, float(want.abs().max()) * 2.0 ** -7
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ATTN_F32_EDGE_CASES, ids=lambda c: c[0])
+def test_attention_fp32_kernel_masks_edge_shapes_on_card(case):
+    """chip_smoke.py's fp32 edge cases: head dims that are not multiples
+    of 8, one key, a ragged query tile, the longest T (narrower K chunks,
+    V streamed), batch 3, inputs one float into a buffer (only 4-byte
+    aligned) and a permuted view: within 1e-5 of the plain version, one
+    launch each."""
+    _needs_card()
+    _, shape, layout = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v = attention_inputs(shape, layout, gen, torch.float32)
+    if layout == "offset":
+        assert q.data_ptr() % 8 == 4
+    before = kernels.launches["attention"]
+    got = attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["attention"] == before + 1
+    torch.testing.assert_close(got, reference_attention(q, k, v),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -13,10 +13,12 @@
 // fp32 K block (263 KB at T=174, D=378) exceeds a block's 227 KB.
 //
 // What bounds it on this card: at the fusion GPT's shapes (T=174, H=4,
-// D in {18, 54, 144, 378}, batch 1) a call moves at most ~2 MB and does at
-// most ~0.2 GFLOP: under a microsecond of HBM or tensor-core time. So
-// latency bounds it: how many SMs work, how long each block's serial chain
-// of loads, products and the softmax is, and the launch itself.
+// D in {18, 54, 144, 378}, batch 1) a call moves at most ~4.2 MB (fp32;
+// 2.1 MB bf16) and does at most ~0.2 GFLOP (0.55 as fp32's three TF32
+// products): about a microsecond of HBM or tensor-core time. So latency
+// bounds it: how many SMs work, how long each block's serial chain of
+// loads, products and the softmax is, the L2-to-SM traffic of every block
+// reading its head's whole K, and the launch itself.
 //
 // Two designs, chosen by dtype (an explicit dispatch, not a fallback):
 //
@@ -53,14 +55,68 @@
 //   - With fewer 8-column output tiles than warps (D=18, 54), several
 //     warps share a tile, each over an interleaved share of the keys, and
 //     their partial sums are added in a fixed order.
-// fp32 (only in card-vs-CPU checks), `attention_fwd_f32`: CUDA cores.
-//   TF32 tensor cores would break the fp32 tolerance of 1e-5. Grid
-//   (B*H, ceil(T/16)); fp32 q rows and logit rows in shared memory, K and
-//   V streamed in 32-row tiles, P.V accumulated in registers.
+// fp32 (fp32 forwards, eval steps and checks), `attention_tc_f32`: the
+// tensor cores as split TF32 (3xTF32; CUTLASS's OpMultiplyAddFastF32).
+//   - Why split: one TF32 product keeps 10 mantissa bits and misses the
+//     fp32 tolerance of 1e-5 by 40-54x (emulated below). Each operand x
+//     is split where its fragment is loaded: big = tf32(x), small =
+//     tf32(x - big), rounded as cvt.rna rounds (x - big is exact). A tile
+//     takes three `mma.sync.m16n8k8` TF32 MMAs with fp32 accumulators,
+//     big.big, big.small and small.big; small.small (~2^-22 of the
+//     product) is dropped. The cross products sum apart from big.big
+//     (the tensor core's sum would drop their low bits). P (fp32 after
+//     the softmax) is split the same way for P.V. Emulated on seeded randn
+//     inputs at (1,174,4,D), D = 16-512 (`PYTHONPATH=. python
+//     tests/test_torch_attention.py`): max abs error 0.6e-6 to 1.7e-6
+//     against the plain version, 0.4e-6 to 1.2e-6 against fp64 (the plain
+//     version's own: 0.4e-6 to 1.0e-6); one TF32 product 4.0e-4 to
+//     5.4e-4 against the plain version.
+//   - Grid (B*H, ceil(T/16), n_chunks): column chunks as in launch_bf16,
+//     but as many as keep the grid within one block per SM, since a
+//     block's registers fill its SM (132 blocks at every main-path
+//     shape, where the CUDA-core kernel this design replaced ran 44
+//     blocks of 4 warps). Each block recomputes its 16 logit rows.
+//   - K streamed, logits in registers: an fp32 K does not fit in shared
+//     memory (270 KB at T=174, D=378), so Q and K go through it in
+//     chunks of up to 64 columns, double-buffered with cp.async (chunk
+//     i + 1 lands while chunk i's MMAs run). The 16 x T logits stay in
+//     registers, each warp owning whole 8-key tiles. The tile loop has
+//     no branch (a warp short of tiles repeats its last one, left out by
+//     the softmax), so every tile's fragment loads issue together, and
+//     each tile keeps three accumulators: independent MMA chains where
+//     the CUDA-core kernel ran one serial chain of D fmaf per logit.
+//   - V's column chunk follows as later cp.async groups that land during
+//     the last MMAs and the softmax: resident where it fits, else
+//     streamed in key chunks through two buffers (long T), so the column
+//     chunks never shrink to make room. The softmax reduces across the
+//     quad by shuffles and across warps through shared memory; P goes to
+//     shared memory in fp32, over the dead K buffers, and each P fragment
+//     is loaded once for all of a warp's P.V tiles.
+//   - Keys padded to a multiple of 8 and masked, D zero-padded to a
+//     multiple of 8, query rows past T zero: the copies zero-fill
+//     (cp.async's src-size), with no extra pass or barrier.
+//   - Any alignment: the host picks each tensor's copy width, 16, 8 or 4
+//     bytes, the widest to which every row start is aligned, and copies
+//     cover the aligned span of each row as in the bf16 kernel. The GPT's
+//     tensors take 16-byte copies (their head slices start only 8-byte
+//     aligned at D = 18, 54, 378: the span covers them); a tensor that
+//     starts one float into a buffer takes 4-byte copies.
+//   - Pitches keep every fragment load free of bank conflicts.
+//   - Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
+//     kernels phase): device time 0.0071 / 0.0094 / 0.0159 / 0.0360 ms
+//     at (1,174,4,D), D = 18 / 54 / 144 / 378, against 0.0216 / 0.0227 /
+//     0.0310 / 0.0319 ms for fp32 SDPA; max abs error against the plain
+//     version 0.7e-6 to 3.6e-6, against fp64 0.6e-6 to 3.1e-6 (the plain
+//     version's own 0.4e-6 to 1.5e-6). What bounds it at D = 378: every
+//     block reads its head's whole K (288 KB with Q) and its V chunk
+//     (90 KB) from L2, 50 MB over the 132 blocks, which
+//     tools/attention_ablation.py shows to take most of the time; the
+//     logits' MMAs come second.
 //
-// Limits: 1 <= T <= 1024, 1 <= D <= 512; bf16 also needs D even and K to
-// fit in shared memory (T=174 takes any D up to 512). The Python wrapper
-// checks the first and raises when the call returns an error.
+// Limits: 1 <= T <= 1024, 1 <= D <= 512, a unit D stride; fp32 takes any
+// other strides and 4-byte alignment; bf16 also needs D even and K to fit
+// in shared memory (T=174 takes any D up to 512). The Python wrapper checks
+// the first and raises when the call returns an error.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,133 +134,6 @@ constexpr int kSmemMax = 232448;  // a Hopper block's dynamic shared memory
 struct Strides {
   long long b, t, h;  // in elements; the D stride is 1
 };
-
-// ---------------------------------------------------------------- fp32
-
-constexpr int kThreads = 128;
-constexpr int kKTile = 32;  // key / value rows per shared-memory tile
-constexpr int kAccPerThread = kQTile * kMaxD / kThreads;  // 64
-
-// Odd row pitch: the 32 lanes of a warp walk 32 different rows at the same
-// column without bank conflicts.
-__host__ __device__ __forceinline__ int row_pitch(int d) { return d | 1; }
-
-__host__ __device__ __forceinline__ size_t smem_bytes_f32(int t, int d) {
-  return sizeof(float) *
-         ((size_t)(kQTile + kKTile) * row_pitch(d) + (size_t)kQTile * t);
-}
-
-// Copy `rows` rows of D elements (row stride `st`) into shared memory.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long st, int rows, int d,
-                                          int ld) {
-  for (int i = threadIdx.x; i < rows * d; i += kThreads) {
-    const int r = i / d;
-    const int c = i - r * d;
-    dst[r * ld + c] = src[r * st + c];
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v, float* __restrict__ o,
-                      int t_len, int n_head, int d, Strides sq, Strides sk,
-                      Strides sv, Strides so, float scale) {
-  extern __shared__ float smem[];
-  const int ld = row_pitch(d);
-  float* q_s = smem;                   // kQTile x ld
-  float* kv_s = q_s + kQTile * ld;     // kKTile x ld
-  float* p_s = kv_s + kKTile * ld;     // kQTile x t_len
-
-  const int b = blockIdx.x / n_head;
-  const int h = blockIdx.x - b * n_head;
-  const int t0 = blockIdx.y * kQTile;
-  const int rows = min(kQTile, t_len - t0);
-  const int tid = threadIdx.x;
-
-  const float* qb = q + b * sq.b + h * sq.h + t0 * sq.t;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  float* ob = o + b * so.b + h * so.h + t0 * so.t;
-
-  load_tile(q_s, qb, sq.t, rows, d, ld);
-
-  // ---- logits: p_s[r][s] = (q_r . k_s) * scale
-  for (int s0 = 0; s0 < t_len; s0 += kKTile) {
-    const int cols = min(kKTile, t_len - s0);
-    __syncthreads();  // q_s written / previous K tile consumed
-    load_tile(kv_s, kb + s0 * sk.t, sk.t, cols, d, ld);
-    __syncthreads();
-    for (int p = tid; p < kQTile * kKTile; p += kThreads) {
-      const int r = p / kKTile;  // one query row per warp
-      const int c = p - r * kKTile;
-      if (r < rows && c < cols) {
-        const float* qr = q_s + r * ld;
-        const float* kr = kv_s + c * ld;
-        float acc = 0.f;
-        for (int i = 0; i < d; ++i) acc = fmaf(qr[i], kr[i], acc);
-        p_s[r * t_len + s0 + c] = acc * scale;
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- exact softmax over each full row, one warp per row
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float* row = p_s + r * t_len;
-    float m = -INFINITY;
-    for (int j = lane; j < t_len; j += 32) m = fmaxf(m, row[j]);
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-    for (int j = lane; j < t_len; j += 32) {
-      const float e = expf(row[j] - m);
-      row[j] = e;
-      sum += e;
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    for (int j = lane; j < t_len; j += 32) row[j] = row[j] / sum;
-  }
-
-  // ---- out = P . V, fp32 accumulators in registers: thread `tid` owns
-  // the flattened outputs e = tid + a * kThreads of the (rows, d) tile
-  float acc[kAccPerThread];
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) acc[a] = 0.f;
-  const int n_out = rows * d;
-
-  for (int s0 = 0; s0 < t_len; s0 += kKTile) {
-    const int cols = min(kKTile, t_len - s0);
-    __syncthreads();  // softmax done / previous V tile consumed
-    load_tile(kv_s, vb + s0 * sv.t, sv.t, cols, d, ld);
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < kAccPerThread; ++a) {
-      const int e = tid + a * kThreads;
-      if (e < n_out) {
-        const int r = e / d;
-        const int c = e - r * d;
-        const float* pr = p_s + r * t_len + s0;
-        float x = acc[a];
-        for (int j = 0; j < cols; ++j) x = fmaf(pr[j], kv_s[j * ld + c], x);
-        acc[a] = x;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < kAccPerThread; ++a) {
-    const int e = tid + a * kThreads;
-    if (e < n_out) {
-      const int r = e / d;
-      const int c = e - r * d;
-      ob[r * so.t + c] = acc[a];
-    }
-  }
-}
 
 // ---------------------------------------------------------------- bf16
 
@@ -533,6 +462,427 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// ---------------------------------------------------------------- fp32
+
+// Padded sizes, pitches and copy widths of one fp32 launch, in floats. ldc
+// and ldp are 4 mod 8, so the 8 rows x 4 columns that a warp reads for an
+// A fragment (Q, P) or K's B fragment fall in 32 different banks; ldv is
+// 8 mod 16, so V's 4 rows x 8 columns do too. All are multiples of 4, so
+// 16-byte copies land aligned.
+struct F32Shape {
+  int t_pad;       // keys padded to a multiple of 8 (the k step of P.V)
+  int d_pad;       // D padded to a multiple of 8 (the k step of q.k)
+  int kc;          // Q / K columns per streamed chunk, a multiple of 8
+  int d_chunk;     // output columns per block, a multiple of 8
+  int k_groups;    // warps that share one 8-column output tile
+  int kv;          // keys per V chunk: t_pad (V resident), or a multiple of
+                   // 8 * k_groups streamed through two buffers
+  int ldc;         // chunk buffer pitch: kc + 4
+  int ldv;         // v_s pitch: round_up(d_chunk, 16) + 8
+  int ldp;         // P pitch: t_pad + 4
+  int v_off;       // floats before v_s: the K chunk buffers, which P reuses
+  int wq, wk, wv;  // copy width of q, k and v in floats: 4, 2 or 1
+};
+
+// the most P.V tasks a warp takes: D = 512 in one column chunk
+constexpr int kMaxTasks = kMaxD / 8 / kTcWarps;
+
+__host__ __device__ __forceinline__ int v_buffers(const F32Shape& s) {
+  return s.kv < s.t_pad ? 2 : 1;
+}
+
+__host__ __device__ __forceinline__ size_t smem_bytes_f32(const F32Shape& s) {
+  return 4 * ((size_t)s.v_off + (size_t)v_buffers(s) * s.kv * s.ldv +
+              2 * kTcWarps * kQTile + kQTile * kRedCols);
+}
+
+// cp.async of w floats (w = 4, 2 or 1: 16, 8 or 4 bytes); the first n come
+// from src, the rest are zero-filled.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             int w, int n) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (w == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(4 * n));
+  else if (w == 2)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+                 "l"(src), "r"(4 * n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(4 * n));
+}
+
+// Wait until at most n (0 to 3) of the latest cp.async groups are still
+// in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3)
+    cp_async_wait<3>();
+  else if (n == 2)
+    cp_async_wait<2>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else
+    cp_async_wait<0>();
+}
+
+// Stage `rows_fill` rows x `width` fp32 columns into shared memory of
+// pitch `ld`: row r < rows takes columns [0, cols) of source row r (whose
+// first column is element `off` of the row; row stride `st`); columns
+// [cols, width) and rows [rows, rows_fill) are zero-filled. The copies, w
+// floats each, cover the w-aligned span of every row (row starts are
+// w-aligned: the host picks w), so column j of row r lands at
+// dst[r * ld + off % w + j]; the span's leading extra columns are never
+// read.
+__device__ __forceinline__ void stage_f32(float* dst, const float* row0,
+                                          long long off, long long st,
+                                          int rows, int rows_fill, int cols,
+                                          int width, int ld, int w) {
+  const int e0 = (int)(off % w);
+  const int per_row = (e0 + width + w - 1) / w;
+  const float* src = row0 + (off - e0);
+  for (int i = threadIdx.x; i < rows_fill * per_row; i += kTcThreads) {
+    const int r = i / per_row;
+    const int j = (i - r * per_row) * w;  // the copy's first span column
+    const int n = r < rows ? max(0, min(w, e0 + cols - j)) : 0;
+    cp_async_f32(dst + r * ld + j, n > 0 ? src + r * st + j : src, w, n);
+  }
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest,
+// ties away from zero), in two integer operations; cvt.rna adds guards
+// for Inf and NaN, which the inputs never hold, to every split.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = big + small, both TF32; x - big is exact in fp32, so the pair keeps
+// about 22 bits of x.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// The split A fragment (rows g, g + 8; columns tg, tg + 4) of a row-major
+// fp32 tile; p points at row g, column tg.
+__device__ __forceinline__ void load_a_split(const float* p, int ld,
+                                             uint32_t (&big)[4],
+                                             uint32_t (&small)[4]) {
+  split_tf32(p[0], big[0], small[0]);
+  split_tf32(p[8 * ld], big[1], small[1]);
+  split_tf32(p[4], big[2], small[2]);
+  split_tf32(p[8 * ld + 4], big[3], small[3]);
+}
+
+// c += a . b for one 16x8x8 tile: TF32 operands, fp32 accumulators.
+// a: row-major 16x8 fragment; b: 8x8 column-major fragment.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 3xTF32 tile product: big.big into c[0], big.small and small.big
+// into c[1] and c[2] (kAcc = 3: no MMA waits for another) or both into
+// c[1] (kAcc = 2). The cross products keep an accumulator apart from
+// big.big: added into it, the tensor core's sum would drop their low
+// bits. small.small (about 2^-22 of the product) is dropped. The B
+// fragment is b[0], b[b_step].
+template <int kAcc>
+__device__ __forceinline__ void mma_split(float (&c)[kAcc][4],
+                                          const uint32_t (&a_big)[4],
+                                          const uint32_t (&a_small)[4],
+                                          const float* b, int b_step) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_tf32(b[0], bb0, bs0);
+  split_tf32(b[b_step], bb1, bs1);
+  mma_tf32(c[kAcc - 1], a_big, bs0, bs1);
+  mma_tf32(c[kAcc / 2], a_small, bb0, bb1);
+  mma_tf32(c[0], a_big, bb0, bb1);
+}
+
+// big.big + (big.small + small.big) of mma_split's accumulators
+template <int kAcc>
+__device__ __forceinline__ float split_sum(const float (&c)[kAcc][4], int e) {
+  return kAcc == 3 ? c[0][e] + (c[1][e] + c[2][e]) : c[0][e] + c[1][e];
+}
+
+__device__ __forceinline__ void store_out_f32(float* ob, long long st, int r,
+                                              int col, int rows, int d,
+                                              float x0, float x1) {
+  if (r < rows) {
+    if (col < d) ob[r * st + col] = x0;
+    if (col + 1 < d) ob[r * st + col + 1] = x1;
+  }
+}
+
+// kTiles: the 8-key tiles each warp owns (at least ceil(T / 64)), as in
+// attention_tc_bf16; kTasks: the P.V tasks each warp takes at most (2 or
+// kMaxTasks). Compile-time counts keep the accumulators in registers.
+template <int kTiles, int kTasks>
+__global__ void __launch_bounds__(kTcThreads)
+    attention_tc_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     int t_len, int n_head, int d, Strides sq, Strides sk,
+                     Strides sv, Strides so, float scale, F32Shape sh) {
+  extern __shared__ __align__(16) float smem_f32[];
+  const int buf_floats = (kQTile + sh.t_pad) * sh.ldc;  // 16 q + t_pad keys
+  float* p_s = smem_f32;  // 16 x ldp, over the chunk buffers after q.k
+  float* v_s = smem_f32 + sh.v_off;  // 1 or 2 V buffers of kv x ldv
+  float* red_max = v_s + v_buffers(sh) * sh.kv * sh.ldv;  // warps x 16
+  float* red_sum = red_max + kTcWarps * kQTile;       // warps x 16
+  float* red_pv = red_sum + kTcWarps * kQTile;        // 16 x kRedCols
+
+  const int b = blockIdx.x / n_head;
+  const int h = blockIdx.x - b * n_head;
+  const int t0 = blockIdx.y * kQTile;
+  const int c0 = blockIdx.z * sh.d_chunk;
+  const int rows = min(kQTile, t_len - t0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;   // MMA fragment row (and column of B / C)
+  const int tg = lane & 3;   // MMA fragment column
+
+  // Chunks start at multiples of 8 columns, so a head slice's offset in
+  // its span (eq, ek) is the same in every chunk.
+  const float* q0 = q + b * sq.b + t0 * sq.t;
+  const float* k0 = k + b * sk.b;
+  const long long qo = h * sq.h, ko = h * sk.h, vo = h * sv.h + c0;
+  const int eq = (int)(qo % sh.wq), ek = (int)(ko % sh.wk),
+            ev = (int)(vo % sh.wv);
+  const int n_kc = (sh.d_pad + sh.kc - 1) / sh.kc;  // K chunks
+  const int n_vc = (sh.t_pad + sh.kv - 1) / sh.kv;  // V chunks
+  const int n_v_early = min(2, n_vc);  // issued with the last K chunk
+
+  // One cp.async group per chunk i: columns [i*kc, i*kc + kc) of this
+  // block's q rows (rows past T zero) and of every key; D's padding zero.
+  auto stage_chunk = [&](int i) {
+    float* buf = smem_f32 + (i & 1) * buf_floats;
+    const int c = i * sh.kc;
+    const int width = min(sh.kc, sh.d_pad - c), cols = min(sh.kc, d - c);
+    stage_f32(buf, q0, qo + c, sq.t, rows, kQTile, cols, width, sh.ldc,
+              sh.wq);
+    stage_f32(buf + kQTile * sh.ldc, k0, ko + c, sk.t, t_len, t_len, cols,
+              width, sh.ldc, sh.wk);
+    cp_async_commit();
+  };
+  // One group per V chunk j: the V columns [c0, c0 + d_chunk) of the keys
+  // [j*kv, j*kv + kv) (padded keys zero).
+  auto stage_v = [&](int j) {
+    const int key0 = j * sh.kv;
+    stage_f32(v_s + (j & 1) * sh.kv * sh.ldv, v + b * sv.b + key0 * sv.t,
+              vo, sv.t, min(sh.kv, t_len - key0), min(sh.kv, sh.t_pad - key0),
+              min(sh.d_chunk, d - c0), sh.d_chunk, sh.ldv, sh.wv);
+    cp_async_commit();
+  };
+  auto stage_v_early = [&]() {
+    stage_v(0);
+    if (n_vc > 1) stage_v(1);
+  };
+
+  // Groups in order: K chunks 0 and 1, then chunk i + 2 once chunk i's
+  // MMAs are done; V chunks 0 and 1 right after the last K chunk, so that
+  // they land during the last MMAs and the softmax; V chunk j + 2 once
+  // chunk j's P.V is done.
+  stage_chunk(0);
+  if (n_kc > 1) stage_chunk(1);
+  if (n_kc <= 2) stage_v_early();
+
+  // ---- logits in registers: warp w owns the key tiles w, w + 8, ... of
+  // 8 keys each; acc[j] holds the three products' rows g and g + 8 of its
+  // tile j. A warp with fewer than kTiles tiles repeats its last one (no
+  // branch in the loop, so the compiler can hoist every tile's loads);
+  // the softmax leaves the repeats out.
+  const int n_key_tiles = sh.t_pad / 8;
+  constexpr int kAcc = kTiles <= 8 ? 3 : 2;  // 3 while registers allow
+  float acc[kTiles][kAcc][4];
+  int k_off[kTiles];  // row offset of tile j's first key in a chunk buffer
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4 * kAcc; ++e) acc[j][e / 4][e % 4] = 0.f;
+    k_off[j] = min(warp + kTcWarps * j, n_key_tiles - 1) * 8 * sh.ldc;
+  }
+  for (int i = 0; i < n_kc; ++i) {
+    // in flight behind chunk i: chunk i + 1, and V's first chunks once
+    // they are issued
+    cp_async_wait_upto((i + 1 < n_kc) + (i + 2 >= n_kc ? n_v_early : 0));
+    __syncthreads();
+    const float* buf = smem_f32 + (i & 1) * buf_floats;
+    const float* qa = buf + g * sh.ldc + eq + tg;
+    const float* kb = buf + (kQTile + g) * sh.ldc + ek + tg;
+    const int width = min(sh.kc, sh.d_pad - i * sh.kc);
+#pragma unroll 2
+    for (int kk = 0; kk < width; kk += 8) {
+      uint32_t a_big[4], a_small[4];
+      load_a_split(qa + kk, sh.ldc, a_big, a_small);
+      // B fragment: K[key of tile j + g][columns kk + tg, kk + tg + 4]
+#pragma unroll
+      for (int j = 0; j < kTiles; ++j)
+        mma_split(acc[j], a_big, a_small, kb + k_off[j] + kk, 4);
+    }
+    __syncthreads();  // chunk i consumed: its buffer takes chunk i + 2
+    if (i + 2 < n_kc) {
+      stage_chunk(i + 2);
+      if (i + 3 == n_kc) stage_v_early();
+    }
+  }
+
+  // ---- exact softmax over each row's t_len real keys: scale, mask the
+  // padded keys, row max and row sum across the quad's lanes, then across
+  // the warps through shared memory (in warp order)
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g + 8
+  float x[kTiles][4];                    // the scaled logits, then e
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    const int key = (warp + kTcWarps * j) * 8 + 2 * tg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool live = key + (e & 1) < t_len;
+      x[j][e] = live ? split_sum(acc[j], e) * scale : -INFINITY;
+    }
+    if (key < sh.t_pad) {
+      m0 = fmaxf(m0, fmaxf(x[j][0], x[j][1]));
+      m1 = fmaxf(m1, fmaxf(x[j][2], x[j][3]));
+    }
+  }
+  for (int off = 1; off < 4; off <<= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+  }
+  if (tg == 0) {
+    red_max[warp * kQTile + g] = m0;
+    red_max[warp * kQTile + g + 8] = m1;
+  }
+  __syncthreads();
+  m0 = red_max[g];
+  m1 = red_max[g + 8];
+  for (int w = 1; w < kTcWarps; ++w) {
+    m0 = fmaxf(m0, red_max[w * kQTile + g]);
+    m1 = fmaxf(m1, red_max[w * kQTile + g + 8]);
+  }
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    if ((warp + kTcWarps * j) * 8 < sh.t_pad) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        x[j][e] = expf(x[j][e] - m0);
+        x[j][2 + e] = expf(x[j][2 + e] - m1);
+        s0 += x[j][e];
+        s1 += x[j][2 + e];
+      }
+    }
+  }
+  for (int off = 1; off < 4; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+  }
+  if (tg == 0) {
+    red_sum[warp * kQTile + g] = s0;
+    red_sum[warp * kQTile + g + 8] = s1;
+  }
+  __syncthreads();
+  s0 = s1 = 0.f;
+  for (int w = 0; w < kTcWarps; ++w) {
+    s0 += red_sum[w * kQTile + g];
+    s1 += red_sum[w * kQTile + g + 8];
+  }
+  // P = e / sum in fp32 (padded keys: e = 0), split again at its loads
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    const int col = (warp + kTcWarps * j) * 8 + 2 * tg;
+    if (col < sh.t_pad) {
+      float* r0 = p_s + g * sh.ldp + col;
+      float* r1 = r0 + 8 * sh.ldp;
+      r0[0] = x[j][0] / s0;
+      r0[1] = x[j][1] / s0;
+      r1[0] = x[j][2] / s1;
+      r1[1] = x[j][3] / s1;
+    }
+  }
+
+  // ---- out = P . V over this block's column chunk, 3xTF32, one V chunk
+  // at a time. A task is one 8-column output tile and one of k_groups
+  // interleaved ranges of 8-key steps; warp w takes the tasks w, w + 8,
+  // ... and keeps their sums in registers across the V chunks. With fewer
+  // tiles than warps several warps share a tile and their partial sums
+  // are added in group order afterwards.
+  const int n_out_tiles = sh.d_chunk / 8;
+  const int kg = sh.k_groups;
+  const int n_tasks = n_out_tiles * kg;
+  const int grp = warp / n_out_tiles;  // this warp's key range
+  const float* pa = p_s + g * sh.ldp + tg;
+  constexpr int kAccPV = kTasks <= 2 ? 3 : 2;  // 3 while registers allow
+  float cc[kTasks][kAccPV][4] = {};
+  for (int j = 0; j < n_vc; ++j) {
+    cp_async_wait_upto(j + 1 < n_vc);  // chunk j + 1 may stay in flight
+    __syncthreads();                   // (and, at j = 0, P is stored)
+    const int key0 = j * sh.kv, key1 = min(sh.t_pad, key0 + sh.kv);
+    const float* vs = v_s + (j & 1) * sh.kv * sh.ldv + ev + tg * sh.ldv + g;
+    // A warp's tasks share one key range (k_groups > 1 leaves one task a
+    // warp), so each P fragment is loaded once for all of them.
+#pragma unroll 2
+    for (int kk = key0 + 8 * grp; kk < key1 && warp < n_tasks;
+         kk += 8 * kg) {
+      uint32_t a_big[4], a_small[4];
+      load_a_split(pa + kk, sh.ldp, a_big, a_small);
+#pragma unroll
+      for (int t = 0; t < kTasks; ++t) {
+        const int task = warp + kTcWarps * t;
+        // B fragment: V[keys kk + tg, kk + tg + 4][column task's tile + g]
+        if (task < n_tasks)
+          mma_split(cc[t], a_big, a_small,
+                    vs + (kk - key0) * sh.ldv + task % n_out_tiles * 8,
+                    4 * sh.ldv);
+      }
+    }
+    if (j + 2 < n_vc) {
+      __syncthreads();  // chunk j consumed: its buffer takes chunk j + 2
+      stage_v(j + 2);
+    }
+  }
+  float* ob = o + b * so.b + h * so.h + t0 * so.t;
+#pragma unroll
+  for (int t = 0; t < kTasks; ++t) {
+    const int task = warp + kTcWarps * t;
+    if (task < n_tasks) {
+      const int nt = task % n_out_tiles;
+      float c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[i] = split_sum(cc[t], i);
+      const int col = nt * 8 + 2 * tg;
+      if (kg == 1) {
+        store_out_f32(ob, so.t, g, c0 + col, rows, d, c[0], c[1]);
+        store_out_f32(ob, so.t, g + 8, c0 + col, rows, d, c[2], c[3]);
+      } else {
+        float* red = red_pv + (grp * kQTile + g) * sh.d_chunk + col;
+        red[0] = c[0];
+        red[1] = c[1];
+        red[8 * sh.d_chunk] = c[2];
+        red[8 * sh.d_chunk + 1] = c[3];
+      }
+    }
+  }
+  if (kg > 1) {
+    __syncthreads();
+    const int pairs = sh.d_chunk / 2;
+    for (int i = threadIdx.x; i < kQTile * pairs; i += kTcThreads) {
+      const int r = i / pairs;
+      const int col = 2 * (i - r * pairs);
+      float x0 = 0.f, x1 = 0.f;
+      for (int gi = 0; gi < kg; ++gi) {
+        x0 += red_pv[(gi * kQTile + r) * sh.d_chunk + col];
+        x1 += red_pv[(gi * kQTile + r) * sh.d_chunk + col + 1];
+      }
+      store_out_f32(ob, so.t, r, c0 + col, rows, d, x0, x1);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -549,20 +899,6 @@ cudaError_t raise_smem(Kernel kernel, unsigned long long* raised, int dev,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) *raised |= bit;
   return err;
-}
-
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       float* o, int batch, int t_len, int n_head, int d,
-                       Strides sq, Strides sk, Strides sv, Strides so,
-                       float scale, int dev, cudaStream_t stream) {
-  static unsigned long long raised = 0;
-  const cudaError_t err = raise_smem(attention_fwd_f32, &raised, dev,
-                                     (int)smem_bytes_f32(kMaxT, kMaxD));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch * n_head, ceil_div(t_len, kQTile));
-  attention_fwd_f32<<<grid, kThreads, smem_bytes_f32(t_len, d), stream>>>(
-      q, k, v, o, t_len, n_head, d, sq, sk, sv, so, scale);
-  return cudaGetLastError();
 }
 
 template <int kTiles>
@@ -632,6 +968,125 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         sh, grid, dev, stream);
   return launch_tc<kMaxKeyTiles>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
                                  so, scale, sh, grid, dev, stream);
+}
+
+// Copy width in floats (4, 2 or 1) of one fp32 tensor: the widest to which
+// every row start is aligned (the data pointer, and the batch and row
+// strides where there is more than one batch or row).
+int copy_width(const void* p, const Strides& s, int batch, int t_len) {
+  for (int w = 4; w > 1; w >>= 1)
+    if (reinterpret_cast<uintptr_t>(p) % (4 * w) == 0 &&
+        (batch == 1 || s.b % w == 0) && (t_len == 1 || s.t % w == 0))
+      return w;
+  return 1;
+}
+
+// Pitches and the K chunk buffers' size (double-buffered when D takes
+// more than one chunk; P reuses them, so they are at least P's size).
+void f32_layout(F32Shape& s) {
+  s.ldc = s.kc + 4;
+  s.ldv = round_up(s.d_chunk, 16) + 8;
+  const int bufs = (s.d_pad > s.kc ? 2 : 1) * (kQTile + s.t_pad) * s.ldc;
+  const int p = kQTile * s.ldp;
+  s.v_off = bufs > p ? bufs : p;
+}
+
+template <int kTiles, int kTasks>
+cudaError_t launch_tc_f32(const float* q, const float* k, const float* v,
+                          float* o, int t_len, int n_head, int d, Strides sq,
+                          Strides sk, Strides sv, Strides so, float scale,
+                          const F32Shape& sh, dim3 grid, int dev,
+                          cudaStream_t stream) {
+  static unsigned long long raised = 0;
+  const cudaError_t err =
+      raise_smem(attention_tc_f32<kTiles, kTasks>, &raised, dev, kSmemMax);
+  if (err != cudaSuccess) return err;
+  attention_tc_f32<kTiles, kTasks>
+      <<<grid, kTcThreads, smem_bytes_f32(sh), stream>>>(
+          q, k, v, o, t_len, n_head, d, sq, sk, sv, so, scale, sh);
+  return cudaGetLastError();
+}
+
+// kTasks = 2 up to 16 P.V tasks (128 output columns per block), else
+// kMaxTasks
+template <int kTiles>
+cudaError_t launch_tiles_f32(const float* q, const float* k, const float* v,
+                             float* o, int t_len, int n_head, int d,
+                             Strides sq, Strides sk, Strides sv, Strides so,
+                             float scale, const F32Shape& sh, dim3 grid,
+                             int dev, cudaStream_t stream) {
+  if (sh.d_chunk / 8 * sh.k_groups <= 2 * kTcWarps)
+    return launch_tc_f32<kTiles, 2>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                    so, scale, sh, grid, dev, stream);
+  return launch_tc_f32<kTiles, kMaxTasks>(q, k, v, o, t_len, n_head, d, sq,
+                                          sk, sv, so, scale, sh, grid, dev,
+                                          stream);
+}
+
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* o, int batch, int t_len, int n_head, int d,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       float scale, int dev, cudaStream_t stream) {
+  F32Shape sh;
+  sh.t_pad = round_up(t_len, 8);
+  sh.d_pad = round_up(d, 8);
+  sh.ldp = sh.t_pad + 4;
+  sh.wq = copy_width(q, sq, batch, t_len);
+  sh.wk = copy_width(k, sk, batch, t_len);
+  sh.wv = copy_width(v, sv, batch, t_len);
+  // as many column chunks as keep the grid within one block per SM: a
+  // block's registers leave no room for a second one, so where
+  // launch_bf16 rounds up, a grid past the SM count would run a second
+  // wave (176 blocks at (4,174,2,D))
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int base = batch * n_head * ceil_div(t_len, kQTile);
+  int n_chunks = sms / base;
+  n_chunks = n_chunks < 1 ? 1
+                          : (n_chunks > sh.d_pad / 8 ? sh.d_pad / 8 : n_chunks);
+  sh.d_chunk = round_up(ceil_div(sh.d_pad, n_chunks), 8);
+  n_chunks = ceil_div(sh.d_pad, sh.d_chunk);
+  const int n_out_tiles = sh.d_chunk / 8;
+  sh.k_groups = n_out_tiles >= kTcWarps ? 1 : kTcWarps / n_out_tiles;
+  // 64-column K chunks and V resident; until the block fits in shared
+  // memory, K chunks down to 16 columns, then V in chunks of fewer keys,
+  // then K chunks of 8 columns (T = 1024 fits at any D with 16 and 8)
+  sh.kc = sh.d_pad < 64 ? sh.d_pad : 64;
+  sh.kv = sh.t_pad;
+  for (f32_layout(sh); smem_bytes_f32(sh) > (size_t)kSmemMax;
+       f32_layout(sh)) {
+    const int kv = round_up(sh.kv / 2, 8 * sh.k_groups);
+    if (sh.kc > 16)
+      sh.kc = round_up(sh.kc / 2, 8);
+    else if (kv < sh.kv)
+      sh.kv = kv;
+    else if (sh.kc > 8)
+      sh.kc = 8;
+    else
+      return cudaErrorInvalidValue;
+  }
+
+  const dim3 grid(batch * n_head, ceil_div(t_len, kQTile), n_chunks);
+  const int tiles = ceil_div(sh.t_pad / 8, kTcWarps);
+  if (tiles <= 1)
+    return launch_tiles_f32<1>(q, k, v, o, t_len, n_head, d, sq, sk, sv, so,
+                               scale, sh, grid, dev, stream);
+  if (tiles <= 2)
+    return launch_tiles_f32<2>(q, k, v, o, t_len, n_head, d, sq, sk, sv, so,
+                               scale, sh, grid, dev, stream);
+  if (tiles <= 3)
+    return launch_tiles_f32<3>(q, k, v, o, t_len, n_head, d, sq, sk, sv, so,
+                               scale, sh, grid, dev, stream);
+  if (tiles <= 4)
+    return launch_tiles_f32<4>(q, k, v, o, t_len, n_head, d, sq, sk, sv, so,
+                               scale, sh, grid, dev, stream);
+  if (tiles <= 8)
+    return launch_tiles_f32<8>(q, k, v, o, t_len, n_head, d, sq, sk, sv, so,
+                               scale, sh, grid, dev, stream);
+  return launch_tiles_f32<kMaxKeyTiles>(q, k, v, o, t_len, n_head, d, sq, sk,
+                                        sv, so, scale, sh, grid, dev, stream);
 }
 
 }  // namespace

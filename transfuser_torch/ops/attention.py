@@ -7,9 +7,13 @@ transfuser_tpu/ops/attention.py:_attn_kernel; the kernel source says what
 bounds it on Hopper and how its design answers that) or raises. On a CPU
 tensor it computes the same function with ``reference_attention``, which
 is the plain PyTorch version the tests and ``chip_smoke.py`` hold the
-kernel against. The kernel dispatches on dtype: bf16 (the main path) on
-the tensor cores, fp32 on the CUDA cores, as TF32 would miss the fp32
-tolerance.
+kernel against. The kernel dispatches on dtype, both on the tensor cores:
+bf16 (the main path) with bf16 operands, fp32 as split TF32 (each operand
+x = big + small, both TF32, and three products big.big + big.small +
+small.big with fp32 sums). One TF32 product keeps 10 mantissa bits and
+would miss the fp32 tolerance of 1e-5 by 40-54x; the split keeps about
+22, within it (tests/test_torch_attention.py emulates both). fp32 takes
+any strides with a unit D stride and 4-byte alignment.
 
 Both follow the Pallas kernel, not the JAX package's einsum fallback: the
 probabilities P stay fp32 through P.V (the fallback casts P to the input
@@ -35,7 +39,7 @@ from . import kernels
 from .dtypes import acc_dtype
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_T = 1024  # logit rows live in shared memory (csrc/attention.cu)
+_MAX_T = 1024  # a block's 16 logit rows live in registers (attention.cu)
 _MAX_D = 512
 # csrc/attention.cu's AttentionArgs: q, k, v, out pointers; (b, t, h)
 # strides of each; B, T, H, D, dtype code (one packed argument costs the
