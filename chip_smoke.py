@@ -132,6 +132,15 @@ Phases, one JSON line each:
                expert_benchmark) on 2 routes with its default town and 20
                vehicles: driving score and wall seconds. A crashed route
                fails the phase
+  bench        transfuser_torch.tools.bench's functions at small counts
+               (BENCH_COUNTS: 5 steps x 2 chains, 20 latency iterations, 8
+               chained forwards): the flagship bf16 at batch 12 with the
+               real-data modes on the lifecycle phase's dataset, then
+               --pillars without real data (scatter-max launches), then
+               transfuser_torch.tools.graft_entry.entry() once. Checks:
+               finite losses, 0 < mfu <= 1, a positive FLOP count, 16
+               attention launches per forward (and in the entry's
+               forward). Prints every number of each bench JSON line
 
     python3 chip_smoke.py --only native agent closed_loop
 
@@ -140,7 +149,7 @@ agent phases then use a seeded flagship member of their own.
 
 The main path's launches are counted in the agent, closed_loop,
 family_forward_ego, family_agent, geometric_train, pillars_forward_ego,
-train, cli and lifecycle phases (counts set to 0 just before each run,
+train, cli, lifecycle, bench and parallel phases (counts set to 0 just before each run,
 read just after). The kernels phase also checks attention at the head
 dims of the ResNet and ConvNeXt GPT stages (D = 16, 32, 64, 128, 256), each row
 naming the configurations that give it; the attention summary in the
@@ -1882,14 +1891,16 @@ def route_records(results: str) -> list:
     return records
 
 
-def phase_lifecycle(datagen_seconds=25.0, drive_seconds=10.0):
+def phase_lifecycle(datagen_seconds=25.0, drive_seconds=10.0,
+                    keep_data=None):
     """datagen -> train -> closed loop, and the expert benchmark, on the
     grid town with moving traffic: (a) ``python -m
     transfuser_torch.harness.cli datagen`` in a subprocess that must not
     initialise CUDA; (b) the flagship, bf16, trained through the training
     CLI in process for 2 epochs on that dataset; (c) its export driven by
     ``transfuser_torch.harness.cli evaluate`` in process; (d) the expert
-    benchmark on 2 routes."""
+    benchmark on 2 routes. ``keep_data``: a path that the dataset's route
+    directories are moved to at the end (the bench phase reads them)."""
     from transfuser_torch.harness import cli as harness_cli
     from transfuser_torch.ops import kernels
     from transfuser_torch.tools.expert_benchmark import run_expert_benchmark
@@ -2035,10 +2046,97 @@ def phase_lifecycle(datagen_seconds=25.0, drive_seconds=10.0):
             infraction_penalty=scores["score_penalty"],
             status=[r["status"] for r in records],
             game_s=sum(r["meta"]["duration_game"] for r in records))
+        if keep_data is not None:
+            shutil.move(os.path.join(root, "grid"), keep_data)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     emit("lifecycle", **out)
+    return launches
+
+
+# ---------------------------------------------------------------- bench
+
+# the bench's counts here, cut from its command line's 30 steps x 3 chains,
+# 50 latency iterations and 32 chained forwards to hold the phase near 2
+# minutes
+BENCH_COUNTS = dict(n_steps=5, n_reps=2, iters=20, chain=8)
+
+
+def bench_checks(name: str, res: dict, launches: dict, pillars: bool):
+    """Finite losses, 0 < mfu <= 1, a positive FLOP count, 16 attention
+    launches per forward, and a scatter-max launch under PointPillars."""
+    if not (np.isfinite(res["loss_first"]) and np.isfinite(res["loss_last"])):
+        raise AssertionError(f"bench {name}: non-finite loss {res}")
+    if not 0.0 < res["mfu"] <= 1.0:
+        raise AssertionError(f"bench {name}: mfu {res['mfu']}")
+    if not res["train_step_tflop"] > 0:
+        raise AssertionError(f"bench {name}: FLOP count "
+                             f"{res['train_step_tflop']}")
+    if res["attention_launches_per_forward"] != 16:
+        raise AssertionError(f"bench {name}: "
+                             f"{res['attention_launches_per_forward']} "
+                             "attention launches per forward, expected 16")
+    if pillars and launches["scatter_max"] < 1:
+        raise AssertionError(f"bench {name}: no scatter-max launch")
+
+
+def phase_bench(data_dir=None):
+    """transfuser_torch.tools.bench's functions at BENCH_COUNTS on the
+    flagship bf16 at batch 12 with its real-data modes on ``data_dir`` (the
+    lifecycle phase's dataset; run alone, two written routes), the same
+    with --pillars (no real data), then graft_entry.entry() once."""
+    from transfuser_torch.data.synthetic import write_route
+    from transfuser_torch.ops import kernels
+    from transfuser_torch.tools import bench, graft_entry
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(kernels.KERNELS, 0)
+    out = {}
+    tmp = None
+    if data_dir is None:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_bench_")
+        data_dir = tmp
+        for i in range(2):
+            write_route(os.path.join(tmp, f"route{i}"), 50, seed=i)
+    try:
+        for name, argv in (("flagship", [f"--real-data={data_dir}"]),
+                           ("pillars", ["--pillars", "--no-real-data"])):
+            opts = bench.parse_args(argv)
+            torch.cuda.synchronize()
+            kernels.reset_launches()   # the main path's run starts here
+            t0 = time.perf_counter()
+            res = bench.run(bench.bench_config(opts), opts,
+                            torch.device("cuda", 0), **BENCH_COUNTS)
+            seconds = time.perf_counter() - t0
+            got = dict(kernels.launches)  # ... and ends here
+            bench_checks(name, res, got, opts.pillars)
+            for k, v in got.items():
+                launches[k] += v
+            out[name] = dict(res, seconds=seconds, launches=got)
+            torch.cuda.empty_cache()
+
+        forward, args = graft_entry.entry()
+        torch.cuda.synchronize()
+        kernels.reset_launches()       # the main path's run starts here
+        with torch.no_grad():
+            result = forward(*args)
+        torch.cuda.synchronize()
+        got = dict(kernels.launches)   # ... and ends here
+        finite = [bool(torch.isfinite(t.float()).all()) for t in result]
+        if got["attention"] != 16 or not all(finite):
+            raise AssertionError(f"graft_entry: launches {got}, waypoints "
+                                 f"/ boxes / labels finite {finite}")
+        for k, v in got.items():
+            launches[k] += v
+        out["graft_entry"] = dict(shapes=[list(t.shape) for t in result],
+                                  launches=got)
+        del forward, args, result
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit("bench", counts=BENCH_COUNTS, **out)
     return launches
 
 
@@ -2539,16 +2637,23 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     launches = dict.fromkeys(kernels.KERNELS, 0)
-    for phase in (lambda: phase_agent(cfg, state),
-                  lambda: phase_closed_loop(cfg, state),
-                  phase_family_forward_ego, phase_family_agents,
-                  phase_geometric_train,
-                  lambda: phase_pillars_forward_ego(pillar_config()),
-                  lambda: phase_train(pillar_config(), profile=profile),
-                  phase_cli, phase_lifecycle, phase_parallel):
-        for name, count in phase().items():
-            launches[name] += count
-        torch.cuda.empty_cache()
+    bench_data = tempfile.mkdtemp(prefix="chip_smoke_bench_data_")
+    expert_data = os.path.join(bench_data, "grid")
+    try:
+        for phase in (lambda: phase_agent(cfg, state),
+                      lambda: phase_closed_loop(cfg, state),
+                      phase_family_forward_ego, phase_family_agents,
+                      phase_geometric_train,
+                      lambda: phase_pillars_forward_ego(pillar_config()),
+                      lambda: phase_train(pillar_config(), profile=profile),
+                      phase_cli,
+                      lambda: phase_lifecycle(keep_data=expert_data),
+                      lambda: phase_bench(expert_data), phase_parallel):
+            for name, count in phase().items():
+                launches[name] += count
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(bench_data, ignore_errors=True)
 
     line = []
     for name, meta in kernels.KERNELS.items():

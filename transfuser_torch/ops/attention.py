@@ -25,6 +25,10 @@ input that requires grad), rather than hand back an output with no
 tensor-parallel GPT's 2-head shards) are first copied into padded rows
 (``_bf16_rows``). Training with attention dropout takes the GPT's explicit
 probabilities instead (models/gpt.py).
+
+Under an active ``ops.flops.FlopCounter`` a call adds its 4 B H T^2 D
+operations by formula (the counter cannot see the kernel), and the plain
+version runs uncounted.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import struct
 
 import torch
 
-from . import kernels
+from . import flops, kernels
 from .dtypes import acc_dtype
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,8 +117,11 @@ def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """(B, T, H, D) fused attention; the output has q's dtype."""
     dev = q.device
+    if q.dim() == 4:
+        flops.count("attention", flops.attention_flops(*q.shape))
     if dev.type == "cpu":
-        return reference_attention(q, k, v)
+        with flops.uncounted():
+            return reference_attention(q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"attention runs on CUDA or CPU, not {dev}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
