@@ -34,7 +34,15 @@ Phases, one JSON line each:
                float into a buffer; a permuted view), with each row's and
                the plain version's error against fp64, and the attention
                device time of one flagship forward per dtype (4 x the
-               main-path rows) beside SDPA's
+               main-path rows) beside SDPA's; then, in both dtypes, the
+               shapes of RegNetY-032 at 8, 2 and 1 heads ((1,174,8,D), D =
+               9/27/72/189; (1,174,2,D), D = 36/108/288/756; (1,174,1,D),
+               D = 72/216/576/1512) and of the token grids of anchors
+               10x44 and 20x88 with 16x16 ((1,696,4,D), (1,2016,4,D), D =
+               18/54/144/378), and q/k/v with a D stride of 2. Each row
+               names the kernel the dispatch rule picks (`route`); where
+               that is a resident kernel, the key-tiled one is checked
+               and timed beside it (`key_tiled_*`)
   forward_ego  the flagship config (regnety_032 both branches, 160x704
                RGB, 256x256 LiDAR) at seeded random init, batch 1, bf16:
                16 attention launches per forward, p50/p90 latency; the same
@@ -71,6 +79,16 @@ Phases, one JSON line each:
                p50/p90 over 50 forwards, attention launches per forward
                (16 / 0 / 0 / 16 / 16), peak memory, fp32 on the card vs
                fp32 on the CPU
+  config_forward_ego
+               the flagship GlobalConfig() at full width (seeded init,
+               batch 1) with (a) n_head=8 and a 256x1024 image (odd D,
+               image pools that do not divide), (b) n_head=2 (D up to
+               756), (c) image anchors 20x88 and LiDAR anchors 16x16 (T =
+               2016, upsampling pools, antialiased downsampling resizes):
+               bf16 p50/p90 over 20 forwards, 16 attention launches per
+               forward, peak memory; fp32 on the card vs fp32 on the CPU
+               (1e-3 m / 1e-4) and bf16 vs fp32 waypoints within 5% of
+               their scale
   family_agent HybridAgent for latentTF (frames without a LiDAR entry)
                and geometric_fusion (the reference grid view turned on by
                its .pth), each from a model dir with a config snapshot and
@@ -148,9 +166,9 @@ runs the named phases alone (after the build) and prints no result; the
 agent phases then use a seeded flagship member of their own.
 
 The main path's launches are counted in the agent, closed_loop,
-family_forward_ego, family_agent, geometric_train, pillars_forward_ego,
-train, cli, lifecycle, bench and parallel phases (counts set to 0 just before each run,
-read just after). The kernels phase also checks attention at the head
+family_forward_ego, config_forward_ego, family_agent, geometric_train,
+pillars_forward_ego, train, cli, lifecycle, bench and parallel phases
+(counts set to 0 just before each run, read just after). The kernels phase also checks attention at the head
 dims of the ResNet and ConvNeXt GPT stages (D = 16, 32, 64, 128, 256), each row
 naming the configurations that give it; the attention summary in the
 kernels line stays over the flagship's four shapes.
@@ -214,6 +232,22 @@ ATTN_F32_EDGE_CASES = [
     ("one float into a buffer, odd D", (2, 17, 3, 17), "offset"),
     ("(B, H, T, D) permuted to (B, T, H, D)", (1, 174, 4, 54), "permuted"),
 ]
+# the GPT's other head counts on RegNetY-032 (stage widths 72 / 216 / 576
+# / 1512) and its longer token grids (image + LiDAR anchors); the
+# key-tiled kernel takes those the resident ones cannot (odd bf16 D,
+# D > 512, T > 1024, bf16 K beyond shared memory)
+ATTN_CONFIG_SHAPES = {
+    **{(1, 174, 8, d): "regnety_032 at n_head=8" for d in (9, 27, 72, 189)},
+    **{(1, 174, 2, d): "regnety_032 at n_head=2"
+       for d in (36, 108, 288, 756)},
+    **{(1, 174, 1, d): "regnety_032 at n_head=1"
+       for d in (72, 216, 576, 1512)},
+    **{(1, 696, 4, d): "anchors 10x44 + 16x16" for d in (18, 54, 144, 378)},
+    **{(1, 2016, 4, d): "anchors 20x88 + 16x16"
+       for d in (18, 54, 144, 378)},
+}
+# a layout the wrapper copies first: q/k/v with a D stride of 2
+ATTN_LAYOUT_CASES = [("D stride 2", (1, 174, 4, 54), "d_stride")]
 # the GPT stages' head dims (stage width / 4 heads) of the other trunks
 ATTN_FAMILY_SHAPES = {
     (1, 174, 4, 16): "transFuser resnet34/resnet18 stage 1",
@@ -225,6 +259,18 @@ ATTN_FAMILY_SHAPES = {
                       "convnext_base stage 3",
     (1, 174, 4, 256): "transFuser convnext_base stage 4",
 }
+# the flagship's full-width forward at the GPT settings the key-tiled
+# kernel opened: (name, what it reaches, GPT fields, sensor fields)
+CONFIG_CASES = [
+    ("n_head8_256x1024", "odd D = 9/27/72/189, image pools that do not "
+     "divide (64x256 -> 5x22 ... 8x32 -> 5x22)", dict(n_head=8),
+     dict(img_resolution=(256, 1024))),
+    ("n_head2", "D = 36/108/288/756", dict(n_head=2), {}),
+    ("anchors_20x88_16x16", "T = 2016, upsampling pools (10x44 and 5x22 -> "
+     "20x88, 8x8 -> 16x16) and antialiased downsampling resizes",
+     dict(img_vert_anchors=20, img_horz_anchors=88, lidar_vert_anchors=16,
+          lidar_horz_anchors=16), {}),
+]
 # (name, backbone, image trunk, LiDAR trunk, attention launches per forward)
 FAMILY_CASES = [
     ("latentTF", "latentTF", "regnety_032", "regnety_032", 16),
@@ -370,20 +416,24 @@ def attention_bound_ms(shape, dtype) -> tuple:
 
 
 def attention_inputs(shape, layout, gen, dtype):
-    """Seeded q, k, v of a (B, T, H, D) shape: dense, one float into a
-    buffer ("offset"), or a (B, H, T, D) tensor permuted ("permuted")."""
+    """Seeded q, k, v of a (B, T, H, D) shape in `dtype`: dense, one
+    element into a buffer ("offset": bf16 rows then only 2-byte aligned),
+    a (B, H, T, D) tensor permuted ("permuted"), or every other element of
+    a buffer of twice the D ("d_stride")."""
+    def randn(*size):
+        return torch.randn(size, generator=gen, device="cuda").to(dtype)
+
     def one():
+        if layout == "d_stride":
+            return randn(*shape, 2)[..., 0]
         if layout == "offset":
-            flat = torch.randn(math.prod(shape) + 1, generator=gen,
-                               device="cuda")
-            return flat[1:].view(shape)
+            return randn(math.prod(shape) + 1)[1:].view(shape)
         if layout == "permuted":
             b, t, h, d = shape
-            return torch.randn((b, h, t, d), generator=gen,
-                               device="cuda").transpose(1, 2)
-        return torch.randn(shape, generator=gen, device="cuda")
+            return randn(b, h, t, d).transpose(1, 2)
+        return randn(*shape)
 
-    return [one().to(dtype) for _ in range(3)]
+    return [one() for _ in range(3)]
 
 
 def scatter_inputs(batch, n, c, segments, kind, gen):
@@ -486,20 +536,35 @@ def check_attention_refuses_grad(gen):
 
 def attention_row(q, k, v, **fields) -> dict:
     """Check the kernel against its plain version on q, k, v (raises past
-    the tolerance) and time it, the plain version and SDPA."""
+    the tolerance) and time it, the plain version and SDPA. The row names
+    the kernel the dispatch rule picks (`route`); where that is the
+    resident kernel, the key-tiled one is checked and timed beside it
+    (`key_tiled_*`), the measurement the rule rests on."""
     import torch.nn.functional as F
 
-    from transfuser_torch.ops.attention import attention, reference_attention
+    from transfuser_torch.ops.attention import (_attention_key_tiled,
+                                                attention, kernel_route,
+                                                reference_attention)
 
     shape, dtype = tuple(q.shape), q.dtype
-    got = attention(q, k, v)
-    torch.cuda.synchronize()
+    route = kernel_route(q, k, v)
     want = reference_attention(q, k, v)
-    err = float((got.float() - want.float()).abs().max())
     tol = attention_tol(dtype, want)
-    if not err <= tol:
-        raise AssertionError(f"attention {shape} {dtype} {fields}: max abs "
-                             f"err {err} > {tol}")
+    errs = {r: float((fn(q, k, v).float() - want.float()).abs().max())
+            for r, fn in (("rule", attention),
+                          ("key_tiled", _attention_key_tiled))
+            if r == "rule" or route == "resident"}
+    for r, e in errs.items():
+        if not e <= tol:
+            raise AssertionError(f"attention {shape} {dtype} {fields} "
+                                 f"{r}: max abs err {e} > {tol}")
+    got, err = attention(q, k, v), errs["rule"]
+    extra = {}
+    if route == "resident":
+        tiled = lambda: _attention_key_tiled(q, k, v)  # noqa: E731
+        extra = dict(key_tiled_max_abs_err=errs["key_tiled"],
+                     key_tiled_ms=cuda_ms(tiled),
+                     key_tiled_device_ms=device_time(tiled)[0])
     # both fp32 paths against fp64: shows each one's own error
     exact = reference_attention(q.double(), k.double(), v.double())
     err64 = float((got.double() - exact).abs().max())
@@ -518,7 +583,8 @@ def attention_row(q, k, v, **fields) -> dict:
         plain_ms=cuda_ms(lambda: reference_attention(q, k, v)),
         library_ms=cuda_ms(library),
         library_device_ms=device_time(library)[0],
-        bound_ms=bound, bound_by=bound_by, ops_rate=ops_rate, **fields)
+        bound_ms=bound, bound_by=bound_by, ops_rate=ops_rate, route=route,
+        **extra, **fields)
 
 
 def phase_kernels():
@@ -537,6 +603,16 @@ def phase_kernels():
         q, k, v = attention_inputs(shape, layout, gen, torch.float32)
         rows.append(attention_row(q, k, v, main_path=False, edge=name,
                                   strides=list(q.stride())))
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, used_by in ATTN_CONFIG_SHAPES.items():
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(3))
+            rows.append(attention_row(q, k, v, main_path=False,
+                                      used_by=used_by))
+        for name, shape, layout in ATTN_LAYOUT_CASES:
+            q, k, v = attention_inputs(shape, layout, gen, dtype)
+            rows.append(attention_row(q, k, v, main_path=False, edge=name,
+                                      strides=list(q.stride())))
     max_err = max(r["max_abs_err"] for r in rows)
     # one forward_ego launches each main-path shape 4 times (4 GPT layers)
     per_forward = {}
@@ -1126,6 +1202,104 @@ def phase_family_forward_ego():
              peak_memory_gb=peak_gb, cpu_fp32_s=cpu_s,
              correspondences_ms=corr_ms,
              pred_wp_bf16=wp_bf.float().cpu()[0].tolist(),
+             checks={k: {"err": e, "tol": t} for k, (e, t) in
+                     checks.items()})
+        for check, (err, tol) in checks.items():
+            if not err <= tol:
+                raise AssertionError(f"{name} {check}: {err} > {tol}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
+
+
+def config_case(gpt: dict, sensors: dict):
+    """The flagship GlobalConfig() with the given GPT and sensor fields."""
+    import dataclasses
+
+    from transfuser_torch.config import GlobalConfig
+
+    cfg = GlobalConfig()
+    model = dataclasses.replace(
+        cfg.model, gpt=dataclasses.replace(cfg.model.gpt, **gpt))
+    return cfg.replace(model=model, sensors=dataclasses.replace(
+        cfg.sensors, **sensors))
+
+
+def phase_config_forward_ego(n=20):
+    """The flagship at full width with other GPT head counts and token
+    grids (CONFIG_CASES), through the key-tiled attention kernel: bf16
+    p50 over n forwards, 16 attention launches each, fp32 on the card vs
+    fp32 on the CPU (1e-3 m / 1e-4, as the family phase) and bf16 vs
+    fp32 waypoints within 5% of their scale (as the flagship phase)."""
+    from transfuser_torch.models import LidarCenterNet
+    from transfuser_torch.ops import kernels
+
+    total = dict.fromkeys(kernels.KERNELS, 0)
+    keys = ("rgb", "lidar", "tp", "tpi", "vel")
+    for name, reaches, gpt, sensors in CONFIG_CASES:
+        cfg = config_case(gpt, sensors)
+        x = flagship_inputs(cfg, seed=7)
+        args = [torch.from_numpy(x[k]).to("cuda") for k in keys]
+        torch.cuda.reset_peak_memory_stats()
+        model = LidarCenterNet(cfg, dtype=torch.bfloat16, device="cuda",
+                               seed=4)
+        for _ in range(2):
+            model.forward_ego(*args)
+        torch.cuda.synchronize()
+        kernels.reset_launches()       # the main path's run starts here
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            wp_bf, boxes_bf, _ = model.forward_ego(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(kernels.launches)  # ... and ends here
+        per_forward = {k: v / n for k, v in launches.items()}
+        if per_forward != {"attention": 16, "scatter_max": 0}:
+            raise AssertionError(f"{name}: launches per forward_ego "
+                                 f"{per_forward}, expected 16 attention")
+        if not (torch.isfinite(wp_bf).all() and
+                torch.isfinite(boxes_bf).all()):
+            raise AssertionError(f"{name}: non-finite forward_ego outputs")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        model.dtype = torch.float32
+        wp32, boxes32, _ = model.forward_ego(*args)
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        del model
+        torch.cuda.empty_cache()
+        cpu_model = LidarCenterNet(cfg, dtype=torch.float32, device="cpu")
+        cpu_model.load_state_dict(state, strict=True)
+        t0 = time.perf_counter()
+        wp_cpu, boxes_cpu, _ = cpu_model.forward_ego(
+            *[torch.from_numpy(x[k]) for k in keys])
+        cpu_s = time.perf_counter() - t0
+        del cpu_model
+        wp32_c, wp_bf_c = wp32.cpu(), wp_bf.float().cpu()
+        scale = max(1.0, float(wp32_c.abs().max()))
+        checks = {
+            "wp_fp32_card_vs_cpu": (float((wp32_c - wp_cpu).abs().max()),
+                                    1e-3),
+            "scores_fp32_card_vs_cpu": (float((top_scores(boxes32) -
+                                               top_scores(boxes_cpu))
+                                              .abs().max()), 1e-4),
+            "wp_bf16_vs_fp32": (float((wp_bf_c - wp32_c).abs().max()),
+                                0.05 * scale),
+        }
+        gpt_cfg = cfg.model.gpt
+        emit("config_forward_ego", config=name, reaches=reaches,
+             n_head=gpt_cfg.n_head,
+             img_anchors=[gpt_cfg.img_vert_anchors, gpt_cfg.img_horz_anchors],
+             lidar_anchors=[gpt_cfg.lidar_vert_anchors,
+                            gpt_cfg.lidar_horz_anchors],
+             img_resolution=list(cfg.sensors.img_resolution),
+             launches_per_forward=per_forward, forwards=n,
+             bf16_p50_ms=float(np.percentile(times, 50)),
+             bf16_p90_ms=float(np.percentile(times, 90)),
+             peak_memory_gb=peak_gb, cpu_fp32_s=cpu_s,
+             scores_bf16_vs_fp32=float((top_scores(boxes_bf) -
+                                        top_scores(boxes32)).abs().max()),
+             pred_wp_bf16=wp_bf_c[0].tolist(),
              checks={k: {"err": e, "tol": t} for k, (e, t) in
                      checks.items()})
         for check, (err, tol) in checks.items():
@@ -2642,7 +2816,8 @@ def main() -> int:
     try:
         for phase in (lambda: phase_agent(cfg, state),
                       lambda: phase_closed_loop(cfg, state),
-                      phase_family_forward_ego, phase_family_agents,
+                      phase_family_forward_ego, phase_config_forward_ego,
+                      phase_family_agents,
                       phase_geometric_train,
                       lambda: phase_pillars_forward_ego(pillar_config()),
                       lambda: phase_train(pillar_config(), profile=profile),

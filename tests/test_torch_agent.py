@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 
 from test_full_import import _parity_config
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.agents.hybrid_agent import HybridAgent as JaxAgent
 from transfuser_tpu.models.lidar_centernet import LidarCenterNet as JaxModel
 from transfuser_tpu.train.checkpoint import (save_config_snapshot,

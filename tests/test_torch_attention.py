@@ -14,10 +14,12 @@ import torch.nn.functional as F
 
 import jax.numpy as jnp
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.ops.attention import (pallas_attention,
                                           reference_attention as jax_ref)
 from transfuser_torch.ops import kernels
-from transfuser_torch.ops.attention import (_bf16_rows, _check, attention,
+from transfuser_torch.ops.attention import (_bf16_rows, _check, _layout,
+                                            attention, copies,
                                             reference_attention)
 
 # as tests/test_attention.py holds the Pallas kernel to the einsum path
@@ -192,6 +194,67 @@ def test_single_tf32_loses_what_the_split_keeps(shape):
     assert single > 16 * split
 
 
+KEY_TILE, KEY_TILED_CHUNK = 64, 64  # csrc/attention.cu kKeyTile, kKtChunk
+
+
+def _key_tiled_emulation(q, k, v):
+    """The key-tiled fp32 kernel's arithmetic (csrc/attention.cu,
+    attention_kt) in plain torch: D zero-padded to a multiple of 8; the
+    logits of each 64-column chunk of D as split-TF32 products, added over
+    the chunks in fp32; pass 1 takes each 64-key tile's row max and sum
+    of exp and merges them into running statistics tile by tile (the
+    kernel merges per lane, then across the quad and the warps: the same
+    operations in another order); pass 2 forms P = exp(s - m) / l in
+    fp32 and adds each tile's P.V, split-TF32 products, in fp32."""
+    b, t, h, d = q.shape
+    dp = -(-d // 8) * 8
+
+    def heads(x):  # (B, T, H, D) -> (B, H, T, dp) fp32
+        return F.pad(x.permute(0, 2, 1, 3).float(), (0, dp - d))
+
+    def product(x, y):
+        xb, yb = _tf32(x), _tf32(y)
+        return xb @ yb + (xb @ _tf32(y - yb) + _tf32(x - xb) @ yb)
+
+    qp, kp, vp = heads(q), heads(k), heads(v)
+    logits = None
+    for c in range(0, dp, KEY_TILED_CHUNK):
+        part = product(qp[..., c:c + KEY_TILED_CHUNK],
+                       kp[..., c:c + KEY_TILED_CHUNK].transpose(-1, -2))
+        logits = part if logits is None else logits + part
+    logits = logits * (1.0 / math.sqrt(d))
+    tiles = range(0, t, KEY_TILE)
+    m = torch.full(logits.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    for j in tiles:
+        s = logits[..., j:j + KEY_TILE]
+        m_t = s.amax(-1, keepdim=True)
+        l_t = torch.exp(s - m_t).sum(-1, keepdim=True)
+        m_new = torch.maximum(m, m_t)
+        l = l * torch.exp(m - m_new) + l_t * torch.exp(m_t - m_new)
+        m = m_new
+    out = torch.zeros_like(qp)
+    for j in tiles:
+        p = torch.exp(logits[..., j:j + KEY_TILE] - m) / l
+        out = out + product(p, vp[..., j:j + KEY_TILE, :])
+    return out[..., :d].permute(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("shape", [(1, 2016, 4, 378), (1, 174, 1, 1512)],
+                         ids=str)
+def test_key_tiled_arithmetic_within_fp32_tolerance(shape):
+    """The key-tiled kernel's two-pass algorithm meets the fp32
+    tolerance (1e-5) against the plain version and against fp64 at the
+    longest token grid (anchors 20x88 + 16x16) and the widest head (one
+    head of RegNetY-032's 1512 channels)."""
+    q, k, v = _fp32(shape, seed=sum(shape) + 4)
+    emulated = _key_tiled_emulation(q, k, v)
+    assert float((emulated - reference_attention(q, k, v))
+                 .abs().max()) <= 1e-5
+    exact = reference_attention(q.double(), k.double(), v.double())
+    assert float((emulated.double() - exact).abs().max()) <= 1e-5
+
+
 def test_ablation_variants_still_match_the_kernel_source():
     """tools/attention_ablation.py cuts parts out of csrc/attention.cu by
     text substitution: each must still match the source exactly once,
@@ -203,29 +266,95 @@ def test_ablation_variants_still_match_the_kernel_source():
     assert len(set(sources.values())) == len(sources)
 
 
-@pytest.mark.parametrize("bad", ["shape", "dtype", "T", "D", "stride",
-                                 "bf16_odd_D", "bf16_odd_stride"])
+@pytest.mark.parametrize("bad", ["shape", "dtype"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    """What JAX's attention() would reject as malformed too: q/k/v of
+    different shapes, a dtype other than fp32 or bf16."""
     q = torch.zeros(1, 8, 2, 4)
     k, v = q.clone(), q.clone()
-    if bad == "bf16_odd_D":
-        q, k, v = (torch.zeros(1, 8, 2, 5, dtype=torch.bfloat16)
-                   for _ in range(3))
-    elif bad == "bf16_odd_stride":
-        q, k, v = (torch.zeros(1, 8, 3, 5, dtype=torch.bfloat16)
-                   [..., :4] for _ in range(3))
-    elif bad == "shape":
+    if bad == "shape":
         k = k[:, :4]
-    elif bad == "dtype":
-        q, k, v = (x.half() for x in (q, k, v))
-    elif bad == "T":
-        q = k = v = torch.zeros(1, 1025, 1, 4)
-    elif bad == "D":
-        q = k = v = torch.zeros(1, 4, 1, 513)
     else:
-        q = torch.zeros(1, 8, 4, 2).transpose(2, 3)
+        q, k, v = (x.half() for x in (q, k, v))
     with pytest.raises((ValueError, TypeError)):
         _check(q, k, v)
+
+
+def _readable_by_a_kernel(x):
+    """A layout some kernel reads in place: a unit D stride; for bf16 with
+    an even D in the resident kernel's domain, also its rows (16-byte
+    aligned, batch and row strides multiples of 8, an even head stride)."""
+    b, t, h, d = x.shape
+    sb, st, sh, sd = x.stride()
+    if d > 1 and sd != 1:
+        return False
+    if x.dtype != torch.bfloat16 or d % 2 or t > 1024 or d > 512:
+        return True
+    return (x.data_ptr() % 16 == 0 and sh % 2 == 0 and
+            (b == 1 or sb % 8 == 0) and (t == 1 or st % 8 == 0))
+
+
+@pytest.mark.parametrize("case", ["T", "D", "stride", "bf16_odd_D",
+                                  "bf16_odd_stride"])
+def test_wrapper_takes_what_jax_takes(case, monkeypatch):
+    """Shapes and layouts the JAX package's attention() takes, which the
+    port refused before the key-tiled kernel: _check accepts them, and the
+    wrapper's layout step hands the kernel a layout it reads, with the
+    same values, copying only where it must (counted in ``copies``). The
+    dispatch rule lives in the CUDA library (asked on a card in
+    tests/test_torch_kernels_cuda.py); here it stands in with its answer
+    for padded rows at T = 8, the resident kernel, and is asked only
+    about rows that kernel cannot read."""
+    asked = []
+    monkeypatch.setattr("transfuser_torch.ops.attention._route_code",
+                        lambda args: asked.append(args) or 1)
+    bf16 = dict(dtype=torch.bfloat16)
+    if case == "T":
+        x, copied = torch.randn(1, 1025, 1, 4), None
+    elif case == "D":
+        x, copied = torch.randn(1, 4, 1, 513), None
+    elif case == "stride":  # a D stride of 4
+        x, copied = torch.randn(1, 8, 4, 2).transpose(2, 3), "d_stride"
+    elif case == "bf16_odd_D":  # the key-tiled kernel reads odd D in place
+        x, copied = torch.randn(1, 8, 2, 5, **bf16), None
+    else:  # even D, odd head stride: padded rows for the resident kernel
+        x, copied = torch.randn(1, 8, 3, 5, **bf16)[..., :4], "bf16_rows"
+    _check(x, x, x)
+    before = dict(copies)
+    q, k, v, out = _layout(x, x, x)
+    assert all(_readable_by_a_kernel(y) for y in (q, k, v))
+    assert torch.equal(q, x) and out.shape == x.shape
+    assert (q is x) == (copied is None)
+    for kind in copies:
+        assert copies[kind] - before[kind] == 3 * (kind == copied)
+    assert bool(asked) == (copied == "bf16_rows")
+
+
+@pytest.mark.parametrize("rule", [1, 2], ids=["resident", "key_tiled"])
+def test_rows_are_padded_only_for_the_resident_kernel(rule, monkeypatch):
+    """Rows the resident bf16 kernel cannot read (a 2-head shard, row
+    stride 2D) are copied into padded rows only where the dispatch rule
+    picks that kernel for the padded layout; the key-tiled kernel reads
+    them in place. Asking which kernel runs copies nothing."""
+    from transfuser_torch.ops.attention import _ARGS, kernel_route
+
+    asked = []
+    monkeypatch.setattr("transfuser_torch.ops.attention._route_code",
+                        lambda args: asked.append(_ARGS.unpack(args)) or rule)
+    qkv = torch.randn(1, 174, 3, 2, 54).bfloat16()
+    q, k, v = qkv.unbind(2)
+    before = dict(copies)
+    assert kernel_route(q, k, v) == ("resident" if rule == 1
+                                     else "key_tiled")
+    assert copies == before
+    # the rule saw the padded rows: pointer 0 (a new buffer), strides of
+    # a row of 2 x 56
+    assert asked[0][:4] == (0, 0, 0, 0)
+    assert asked[0][4:7] == (174 * 112, 112, 56)
+    staged = _layout(q, k, v)[:3]
+    assert copies["bf16_rows"] - before["bf16_rows"] == 3 * (rule == 1)
+    assert all((y is x) == (rule == 2) and torch.equal(y, x)
+               for x, y in zip((q, k, v), staged))
 
 
 @pytest.mark.parametrize("d", [18, 54, 144, 378])

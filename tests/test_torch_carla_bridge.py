@@ -18,6 +18,7 @@ import test_bridge_agent as jax_bridge_cases
 import test_carla_adapter as carla_cases
 from test_bridge_agent import routes  # noqa: F401  (fixture)
 from test_carla_adapter import fake_carla  # noqa: F401  (fixture)
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_torch.agents.bridge_agent import (CONTROL_TOPIC,
                                                   BridgeAgent, LocalBus)
 from transfuser_torch.harness.evaluator import Evaluator, EvaluatorArgs

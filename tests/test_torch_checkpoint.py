@@ -22,6 +22,7 @@ from flax import serialization
 
 from test_full_import import _parity_config
 from test_torch_forward_ego import _inputs, _torch_args
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from test_torch_train import _numpy_variables
 from transfuser_tpu.models.lidar_centernet import LidarCenterNet as JaxModel
 from transfuser_tpu.train import checkpoint as jax_ckpt

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_agent import _frames, _plan
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.train import cli as jax_cli
 from transfuser_torch.agents.hybrid_agent import HybridAgent
 from transfuser_torch.data.synthetic import write_route

@@ -31,6 +31,7 @@ import torch
 from helpers import tiny_config
 from test_torch_agent import WP_ATOL, WP_RTOL
 from test_torch_harness import strip_wall_clock
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.agents import base as jax_base
 from transfuser_tpu.agents.hybrid_agent import HybridAgent as JaxAgent
 from transfuser_tpu.data.synthetic import synthetic_batch

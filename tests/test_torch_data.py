@@ -14,6 +14,7 @@ import torch
 import jax
 
 from helpers import tiny_config
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu import native as jax_native
 from transfuser_tpu.config import GlobalConfig as JaxConfig
 from transfuser_tpu.data import decoders as jdec

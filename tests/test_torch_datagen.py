@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from test_torch_harness import strip_wall_clock
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu import native as jax_native
 from transfuser_tpu.agents.data_agent import DataAgent as JaxDataAgent
 from transfuser_tpu.config import GlobalConfig as JaxConfig

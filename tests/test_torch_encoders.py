@@ -19,6 +19,7 @@ import jax
 import jax.numpy as jnp
 from flax import linen as nn
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.models import encoders as jenc
 from transfuser_torch.models.encoders import make_encoder, trunk_family
 from transfuser_torch.models.layers import LayerNorm2d

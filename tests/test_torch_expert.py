@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from test_torch_harness import strip_wall_clock
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.agents.autopilot import AutoPilot as JaxAutoPilot
 from transfuser_tpu.harness import criteria as jax_criteria
 from transfuser_tpu.harness import evaluator as jax_evaluator

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 
 from test_torch_agent import WP_ATOL, WP_RTOL, _frames, _plan
 from test_torch_families import _config, _numpy_variables
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu import native as jax_native
 from transfuser_tpu.agents.hybrid_agent import HybridAgent as JaxAgent
 from transfuser_tpu.config import GlobalConfig as JaxConfig

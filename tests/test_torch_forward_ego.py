@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from test_full_import import TorchLidarCenterNet, _parity_config
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.models.lidar_centernet import LidarCenterNet as JaxModel
 from transfuser_tpu.train.torch_import import (
     _flat_leaves, convert_lidar_centernet_statedict)

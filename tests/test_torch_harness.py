@@ -13,6 +13,7 @@ import zlib
 import numpy as np
 import pytest
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.agents import base as jax_base
 from transfuser_tpu.agents import demo_agents as jax_demo
 from transfuser_tpu.control import pid as jax_pid

@@ -8,17 +8,21 @@ package, so it runs where only the port's dependencies are installed:
 Tolerances are chip_smoke.py's: attention fp32 1e-5 (summation order
 and the split-TF32 products), bf16 one bf16 ulp at the output's largest
 magnitude; the scatter-max equal bit for bit. Each call launches its
-kernel exactly once. The fp32 edge cases are chip_smoke.py's own.
+kernel exactly once. The fp32 edge cases and the head counts and token
+grids of the key-tiled kernel are chip_smoke.py's own.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ATTN_F32_EDGE_CASES, attention_inputs
+from chip_smoke import (ATTN_CONFIG_SHAPES, ATTN_F32_EDGE_CASES,
+                        attention_inputs, attention_tol)
 from transfuser_torch.ops import kernels
 from transfuser_torch.ops import pillars as tp
-from transfuser_torch.ops.attention import attention, reference_attention
+from transfuser_torch.ops.attention import (_attention_key_tiled, attention,
+                                            copies, kernel_route,
+                                            reference_attention)
 
 ATTN_MAIN_SHAPES = [(1, 174, 4, d) for d in (18, 54, 144, 378)]
 
@@ -101,6 +105,86 @@ def test_attention_fp32_kernel_masks_edge_shapes_on_card(case):
     assert kernels.launches["attention"] == before + 1
     torch.testing.assert_close(got, reference_attention(q, k, v),
                                rtol=1e-5, atol=1e-5)
+
+
+def _check_launch(q, k, v, fn=attention):
+    """One launch of the wrapper (or of the key-tiled kernel forced),
+    within chip_smoke.py's tolerance of the plain version."""
+    before = kernels.launches["attention"]
+    got = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert kernels.launches["attention"] == before + 1
+    want = reference_attention(q, k, v)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= attention_tol(q.dtype, want), (q.shape, q.dtype, fn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("shape", list(ATTN_CONFIG_SHAPES), ids=str)
+def test_attention_key_tiled_kernel_at_other_heads_and_grids_on_card(
+        shape, dtype):
+    """RegNetY-032 at 8, 2 and 1 heads (odd bf16 D, D up to 1512) and the
+    token grids of anchors 10x44 and 20x88 (T = 696, 2016): the dispatch
+    rule picks the key-tiled kernel wherever the resident one cannot take
+    the shape, and either kernel meets the tolerance."""
+    _needs_card()
+    b, t, h, d = shape
+    q, k, v = [torch.from_numpy(a).to("cuda", dtype)
+               for a in _qkv(shape, seed=t + h + d)]
+    route = kernel_route(q, k, v)
+    if t > 1024 or d > 512 or (dtype == torch.bfloat16 and d % 2):
+        assert route == "key_tiled"
+    _check_launch(q, k, v)
+    _check_launch(q, k, v, _attention_key_tiled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_attention_routes_on_card(dtype):
+    """The main path keeps the resident kernels, the key-tiled kernel
+    takes the same shapes within the tolerance when forced, and asking
+    the rule copies nothing. 2-head shards (row stride 2D, rows the
+    resident bf16 kernel cannot read) are padded where the rule then picks
+    the resident kernel (T = 174) and read in place by the key-tiled one
+    where K would not fit in shared memory (T = 696)."""
+    _needs_card()
+    for shape in ATTN_MAIN_SHAPES:
+        q, k, v = [torch.from_numpy(a).to("cuda", dtype)
+                   for a in _qkv(shape, seed=sum(shape))]
+        before = dict(copies)
+        assert kernel_route(q, k, v) == "resident"
+        assert copies == before
+        _check_launch(q, k, v)
+        _check_launch(q, k, v, _attention_key_tiled)
+    bf16 = dtype == torch.bfloat16
+    for t in (174, 696):
+        qkv = torch.randn(1, t, 3, 2, 378, device="cuda").to(dtype)
+        q, k, v = qkv.unbind(2)
+        route = "key_tiled" if bf16 and t == 696 else "resident"
+        before = dict(copies)
+        assert kernel_route(q, k, v) == route
+        assert copies == before
+        _check_launch(q, k, v)
+        padded = bf16 and route == "resident"
+        assert copies["bf16_rows"] - before["bf16_rows"] == 3 * padded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("layout", ["d_stride", "offset", "permuted"])
+def test_attention_layouts_on_card(layout, dtype):
+    """A D stride of 2 (the wrapper's counted contiguous copy), inputs
+    one element into a buffer (bf16 rows only 2-byte aligned: the
+    key-tiled kernel's 2-byte copies) and a permuted view, at odd and
+    even D."""
+    _needs_card()
+    for shape in [(1, 174, 4, 54), (2, 17, 3, 17)]:
+        gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+        q, k, v = attention_inputs(shape, layout, gen, dtype)
+        before = copies["d_stride"]
+        _check_launch(q, k, v)
+        assert copies["d_stride"] - before == 3 * (layout == "d_stride")
 
 
 @pytest.mark.cuda

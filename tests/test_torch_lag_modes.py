@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from test_torch_agent import WP_ATOL, WP_RTOL, _model_dir
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.agents.hybrid_agent import HybridAgent as JaxAgent
 from transfuser_tpu.harness import route_parser as jax_routes
 from transfuser_tpu.sim.types import Location as JaxLocation

@@ -15,6 +15,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.models import decoders as jdec
 from transfuser_tpu.models import encoders as jenc
 from transfuser_tpu.models import gpt as jgpt
@@ -90,8 +91,14 @@ def test_image_ops(case):
 
 
 def test_resize_half_pixel_downsample_raises():
-    with pytest.raises(ValueError, match="antialias"):
-        tops.resize_bilinear(torch.zeros(1, 8, 8, 2), (4, 4))
+    """A half-pixel downsample no longer raises: it antialiases as
+    jax.image.resize does (tests/test_torch_image_ops.py holds more
+    cases)."""
+    x = _np(7, 1, 8, 8, 2)
+    got = tops.resize_bilinear(torch.from_numpy(x), (4, 4)).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jops.resize_bilinear(jnp.asarray(x), (4, 4))),
+        rtol=0, atol=1e-5)
 
 
 # ------------------------------------------------------------- RegNetY

@@ -12,6 +12,7 @@ import cv2
 import numpy as np
 import pytest
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.config import SEMANTIC_CONVERTER
 from transfuser_tpu.data import decoders as jax_decoders
 from transfuser_tpu.data import lidar_np as jax_lidar

@@ -21,12 +21,10 @@ with gloo ranks in subprocesses (tests/torch_parallel_worker.py).
     equals the one process's from the same generator. A checkpoint of one
     process restores at data 2 (ZeRO-1) and at model 2 to the saved
     parameters and moments, and the next step equals the one process's.
-(e) The training CLI at 2 processes (``--multihost 1``, and torchrun's
-    ``env://``) on a written dataset: disjoint shards covering the train
-    set, equal losses on both ranks, one set of checkpoints, resumed at 1
-    process.
+(e) The training CLI at 2 processes: tests/test_torch_parallel_cli.py.
 Dropout off (tests/test_torch_train.py's config) but where said; the
-ranks of (c, d) train in fp64 (see ``_jax_case``).
+ranks of (c, d) train in fp64 (see ``_jax_case``) and meet through a
+``file://`` rendezvous. Each launch has 180 s in all.
 """
 
 import dataclasses
@@ -36,6 +34,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +46,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from test_torch_train import (RTOL, SMALL, ZERO_GRAD_LEAVES, _config,
                               _numpy_variables)
 from transfuser_tpu.data.loader import PrefetchLoader as JaxLoader
@@ -61,12 +61,11 @@ from transfuser_tpu.train.trainer import _model_inputs as jax_inputs
 from transfuser_torch.config import GlobalConfig
 from transfuser_torch.data.loader import PrefetchLoader
 from transfuser_torch.data.pack import unpack_batch
-from transfuser_torch.data.synthetic import write_route
 from transfuser_torch.models import LidarCenterNet as PortModel
 from transfuser_torch.models.encoders import make_encoder
 from transfuser_torch.models.gpt import GPTFusion
 from transfuser_torch.parallel import sharding as shd
-from transfuser_torch.train import checkpoint, cli
+from transfuser_torch.train import checkpoint
 from transfuser_torch.train import trainer as trainer_module
 from transfuser_torch.train.jax_import import state_dict_from_jax
 from transfuser_torch.train.losses import compute_losses, total_loss
@@ -94,20 +93,36 @@ def _env() -> dict:
     return env
 
 
-def _launch(argvs, timeout=300):
-    """Start every argv at once; all must exit 0."""
+def _rendezvous(job_path) -> str:
+    """A ``file://`` rendezvous beside a job's file, for its gloo ranks: no
+    port to race for."""
+    return f"file://{job_path}.store"
+
+
+class PortTaken(AssertionError):
+    """A rank could not bind the coordinator's port (taken since
+    ``_free_port`` saw it free)."""
+
+
+def _launch(argvs, timeout=180):
+    """Start every argv at once; all must exit 0 within ``timeout``
+    seconds in all (each launch takes well under a minute here)."""
     procs = [subprocess.Popen(a, env=_env(), cwd=REPO,
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for a in argvs]
+    deadline = time.monotonic() + timeout
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
     finally:
         for p in procs:
             p.kill()
     for p, log in zip(procs, logs):
+        if p.returncode != 0 and "address already in use" in log.lower():
+            raise PortTaken(log[-4000:])
         assert p.returncode == 0, log[-4000:]
     return logs
 
@@ -293,8 +308,8 @@ def ranks(request, inputs):
     world = data * model
     job = dict(config=str(d / "config.json"), weights=str(d / "weights.pt"),
                batch=str(d / "batch.npz"), mesh=[data, model],
-               world=world, port=_free_port(), steps=3,
-               zero=[True, False] if data > 1 else [True],
+               world=world, init_method=_rendezvous(d / request.param),
+               steps=3, zero=[True, False] if data > 1 else [True],
                out=str(d / request.param))
     path = d / f"{request.param}.json"
     path.write_text(json.dumps(job))
@@ -512,8 +527,8 @@ def test_tensor_parallel_dropout_equals_one_process(inputs, tmp_path):
     job = dict(config=str(tmp_path / "config.json"),
                weights=str(tmp_path / "weights.pt"),
                batch=str(tmp_path / "batch.npz"), mesh=[1, 2], world=2,
-               port=_free_port(), steps=1, zero=[True],
-               out=str(tmp_path / "rank"))
+               init_method=_rendezvous(tmp_path / "job"), steps=1,
+               zero=[True], out=str(tmp_path / "rank"))
     (tmp_path / "job.json").write_text(json.dumps(job))
     _launch([[sys.executable, WORKER, "step", str(tmp_path / "job.json"),
               str(r)] for r in range(2)])
@@ -547,7 +562,8 @@ def resumed(inputs, tmp_path_factory):
     np.savez(d / "batch.npz", **case["batch"])
     job = dict(config=str(d / "config.json"), ckpt=str(d / "run"), epoch=1,
                batch=str(d / "batch.npz"), meshes=[[2, 1], [1, 2]],
-               world=2, port=_free_port(), out=str(d / "rank"))
+               world=2, init_method=_rendezvous(d / "job"),
+               out=str(d / "rank"))
     (d / "job.json").write_text(json.dumps(job))
     _launch([[sys.executable, WORKER, "resume", str(d / "job.json"),
               str(r)] for r in range(2)])
@@ -601,8 +617,8 @@ def test_pillars_data_parallel_equals_one_process(tmp_path):
     job = dict(config=str(tmp_path / "config.json"),
                weights=str(tmp_path / "weights.pt"),
                batch=str(tmp_path / "batch.npz"), mesh=[2, 1], world=2,
-               port=_free_port(), steps=1, zero=[True],
-               out=str(tmp_path / "rank"))
+               init_method=_rendezvous(tmp_path / "job"), steps=1,
+               zero=[True], out=str(tmp_path / "rank"))
     (tmp_path / "job.json").write_text(json.dumps(job))
     _launch([[sys.executable, WORKER, "step", str(tmp_path / "job.json"),
               str(r)] for r in range(2)])
@@ -620,90 +636,3 @@ def test_pillars_data_parallel_equals_one_process(tmp_path):
         for k, v in stats.items():
             np.testing.assert_allclose(v, one.model.state_dict()[k],
                                        rtol=1e-9, atol=1e-12, err_msg=k)
-
-
-# ------------------------------------------------------------ (e) CLI
-
-@pytest.fixture(scope="module")
-def cli_runs(tmp_path_factory):
-    """The CLI at 2 processes, started both ways, 1 epoch each: 4 train
-    samples (2 per rank at batch 1), 2 withheld ones."""
-    root = tmp_path_factory.mktemp("carla")
-    write_route(str(root / "T" / "Town01_route0"), 13, seed=0, n_points=4000)
-    write_route(str(root / "T" / "Town02_route0"), 11, seed=1, n_points=4000)
-    d = tmp_path_factory.mktemp("cli")
-    runs = {}
-    for how in ("multihost", "torchrun"):
-        argv = ["--root_dir", str(root), "--logdir", str(d), "--id", how,
-                "--setting", "02_05_withheld", "--epochs", "1",
-                "--batch_size", "1", "--val_every", "1", "--num_workers",
-                "1", "--device", "cpu", "--per_step_metrics", "1",
-                "--image_architecture", "regnety_micro",
-                "--lidar_architecture", "regnety_micro"]
-        job = dict(argv=argv, world=2, port=_free_port(),
-                   out=str(d / f"{how}_rank"))
-        path = d / f"{how}.json"
-        path.write_text(json.dumps(job))
-        if how == "multihost":
-            argvs = [[sys.executable, WORKER, "cli", str(path), str(r)]
-                     for r in range(2)]
-        else:
-            argvs = [[sys.executable, "-m", "torch.distributed.run",
-                      "--nproc_per_node", "2", "--master_addr", "127.0.0.1",
-                      "--master_port", str(job["port"]), WORKER, "cli",
-                      str(path)]]
-        _launch(argvs)
-        runs[how] = [json.loads(Path(f"{job['out']}.{r}.json").read_text())
-                     for r in range(2)]
-    return root, d, runs
-
-
-@pytest.mark.parametrize("how", ["multihost", "torchrun"])
-def test_cli_two_processes(cli_runs, how):
-    _, d, runs = cli_runs
-    r0, r1 = runs[how]
-    i0, i1 = set(r0["indices"]), set(r1["indices"])
-    assert i0.isdisjoint(i1) and i0 | i1 == {0, 1, 2, 3}
-    for row in r0["history"] + r1["history"]:
-        row.pop("samples_per_sec")  # each rank's own clock
-    assert r0["history"] == r1["history"]  # the global losses
-    assert np.isfinite(r0["history"][0]["loss_total"])
-    assert "val_ade" in r0["history"][0]
-    run = d / how
-    for name in ("config.json", "args.txt", "1", "history.json",
-                 "model_1.msgpack", "best/model_best.msgpack"):
-        assert (run / name).exists(), name
-    assert checkpoint.list_ensemble_weights(str(run)) == \
-        [str(run / "model_1.msgpack")]
-
-
-def test_cli_resumes_a_two_process_checkpoint_at_one(cli_runs):
-    root, d, _ = cli_runs
-    saved = torch.load(d / "multihost" / "1" / checkpoint.TRAIN_STATE,
-                       weights_only=True)
-    resumed = {}
-    real_train_epoch = Trainer.train_epoch
-
-    def spy(self, batches, fetch_metrics=True):
-        if not resumed:
-            resumed.update({k: v.clone() for k, v in
-                            self.model.state_dict().items()})
-            resumed["step_count"] = self.optimizer.step_count
-        return real_train_epoch(self, batches, fetch_metrics)
-
-    Trainer.train_epoch = spy
-    try:
-        summary = cli.main([
-            "--root_dir", str(root), "--logdir", str(d), "--id",
-            "multihost", "--setting", "02_05_withheld", "--epochs", "2",
-            "--batch_size", "2", "--val_every", "1", "--num_workers", "1",
-            "--device", "cpu", "--load_epoch", "1", "--start_epoch", "1",
-            "--image_architecture", "regnety_micro",
-            "--lidar_architecture", "regnety_micro"])
-    finally:
-        Trainer.train_epoch = real_train_epoch
-    assert resumed.pop("step_count") == saved["step"] == 2
-    for k, v in saved["model"].items():
-        assert torch.equal(resumed[k], v), k
-    assert [r["epoch"] for r in summary["history"]] == [1]
-    assert (d / "multihost" / "2").exists()

@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.config import PointPillarConfig
 from transfuser_tpu.models.point_pillar import PointPillarNet as JaxPPN
 from transfuser_tpu.ops import pillars as jp

@@ -9,6 +9,7 @@ import cv2
 import numpy as np
 import pytest
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_torch.data.decoders import resize_nearest
 from transfuser_torch.sim import raster
 

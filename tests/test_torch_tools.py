@@ -15,6 +15,7 @@ import cv2
 import numpy as np
 import pytest
 
+from test_torch_threads import torch_threads_per_worker  # noqa: F401
 from transfuser_tpu.harness import evaluator as jax_evaluator
 from transfuser_tpu.tools import package_submission as jax_package
 from transfuser_tpu.tools import result_parser as jax_parser

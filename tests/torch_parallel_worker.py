@@ -5,10 +5,10 @@ tests/test_torch_parallel.py. Imports torch and the port only (no jax).
     python torch_parallel_worker.py resume <job.json> <rank>
     python torch_parallel_worker.py cli <job.json> [<rank>]
 
-``step``: joins a gloo group of ``job["world"]`` ranks on
-``tcp://127.0.0.1:<job["port"]>``, builds the port's Trainer on a
-``job["mesh"]`` = (data, model) mesh from ``job["config"]`` (a port config
-JSON) in fp64 (the parameters too), loads the full weights of
+``step``: joins a gloo group of ``job["world"]`` ranks through
+``job["init_method"]`` (a ``file://`` rendezvous), builds the port's
+Trainer on a ``job["mesh"]`` = (data, model) mesh from ``job["config"]``
+(a port config JSON) in fp64 (the parameters too), loads the full weights of
 ``job["weights"]`` into it, and for each
 setting of ZeRO-1 in ``job["zero"]`` runs ``job["steps"]`` train steps on
 the global batch ``job["batch"]`` (an .npz; each rank takes its rows),
@@ -27,9 +27,9 @@ global batch and records its loss dict and the parameters after it.
 
 ``cli``: records which train-set samples this process decodes, runs
 ``transfuser_torch.train.cli.main(job["argv"])`` (with ``--multihost 1
---process_id <rank>`` when a rank is given, else under torchrun's
-``env://``) and writes the indices and the run's summary to
-``<job["out"]>.<rank>.json``.
+--coordinator_address 127.0.0.1:<job["port"]> --process_id <rank>`` when
+a rank is given, else under torchrun's ``env://``) and writes the indices
+and the run's summary to ``<job["out"]>.<rank>.json``.
 """
 
 import dataclasses
@@ -51,8 +51,7 @@ def _join(job: dict, rank: int):
     torch.set_num_threads(1)
     build = module.LidarCenterNet
     module.LidarCenterNet = lambda *a, **kw: build(*a, **kw).double()
-    init_distributed(torch.device("cpu"),
-                     init_method=f"tcp://127.0.0.1:{job['port']}",
+    init_distributed(torch.device("cpu"), init_method=job["init_method"],
                      world_size=job["world"], rank=rank)
     return GlobalConfig.from_json(open(job["config"]).read())
 

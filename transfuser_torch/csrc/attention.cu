@@ -20,7 +20,20 @@
 // loads, products and the softmax is, the L2-to-SM traffic of every block
 // reading its head's whole K, and the launch itself.
 //
-// Two designs, chosen by dtype (an explicit dispatch, not a fallback):
+// Three kernels, chosen by a rule on the shape, dtype and layout (an
+// explicit dispatch, not a retry; `tf_attention_route` below):
+//   - the resident kernels, for T <= 1024 and D <= 512: fp32 always, bf16
+//     where D is even, the rows are 16-byte aligned (see the wrapper's
+//     `_bf16_rows`) and the head's whole K fits in shared memory (T = 174
+//     at any D up to 512);
+//   - the key-tiled kernel for every other shape, in either dtype.
+// The rule keeps the main path, the other trunks' and the tensor-parallel
+// shapes on the resident kernels: at every shape both take, they ran
+// 1.7-6.5x faster than the key-tiled one (run BF of chip_smoke.py, NVIDIA
+// H100 80GB HBM3 at 700 W, device time: bf16 (1,174,4,378) 0.0130
+// against 0.0849 ms, fp32 0.0356 against 0.1150), fp32 at T = 1024 too:
+// (1,1024,4,64) 0.1027 against 0.1738 ms, (1,1024,2,512) 0.4115 against
+// 1.8834.
 //
 // bf16 (the main path), `attention_tc_bf16`: tensor cores.
 //   - Grid (B*H, ceil(T/16), n_chunks): a block owns 16 query rows of one
@@ -113,21 +126,49 @@
 //     tools/attention_ablation.py shows to take most of the time; the
 //     logits' MMAs come second.
 //
-// Limits: 1 <= T <= 1024, 1 <= D <= 512, a unit D stride; fp32 takes any
-// other strides and 4-byte alignment; bf16 also needs D even and K to fit
-// in shared memory (T=174 takes any D up to 512). The Python wrapper checks
-// the first and raises when the call returns an error.
+// Key-tiled (any T, any D, either dtype, any alignment), `attention_kt`:
+//   - Grid and arithmetic as above: 16 query rows and at most 128 output
+//     columns a block; bf16 MMAs with P as bf16 hi + lo, or split TF32.
+//   - K and V stream through shared memory in tiles of 64 keys (one 8-key
+//     MMA tile a warp), Q and K in chunks of 64 columns, each copy landing
+//     during the previous stage's MMAs (cp.async, one stage ahead), so
+//     neither T nor D sets a register or shared-memory size.
+//   - Two passes over the key tiles, as the Pallas kernel's exact softmax:
+//     the row max and sum first (running per lane, merged across the quad
+//     and the warps once), then the logits again, P = exp(s - m) / l in
+//     fp32 and P.V. Each chunk's logits and each tile's P.V leave the
+//     tensor cores' accumulators into fp32 sums: over a long D or T the
+//     accumulators' own sums lose low bits (fp32 (1,174,1,1512): 9.66e-6
+//     against the plain version before, 1.01e-6 after, runs BE / BF).
+//   - Copies of 16, 8, 4 or 2 bytes, the widest every row start allows:
+//     bf16 head slices of odd D start at odd elements, read as 16-bit
+//     pairs; 2-byte rows, which cp.async cannot copy, are plain loads.
+//   - What bounds it: every 16-row block reads its head's whole K twice
+//     and its V chunk from L2, 6.6 GB at (1,2016,4,378) bf16, which runs
+//     in 5.71 ms against SDPA's 0.85 (run BF): larger query tiles per
+//     block (P kept in registers) or wgmma are the levers.
+//
+// Limits: the grid's (B*H < 2^31, ceil(T/16) and the column chunks at
+// most 65535 each) and 32-bit element offsets within a row's span (T and
+// D below 2^31); strides are 64-bit. The D stride must be 1 (the wrapper
+// copies a tensor whose D stride is not). A launch that fails returns its
+// error, and the wrapper raises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kQTile = 16;  // query rows per block
-constexpr int kMaxD = 512;
-constexpr int kMaxT = 1024;
+// the shape domain of the resident-K (bf16) and register-logit (fp32)
+// kernels, whose compile-time tile counts it sets; the key-tiled path
+// takes every shape outside it
+constexpr int kResidentMaxD = 512;
+constexpr int kResidentMaxT = 1024;
 constexpr int kMaxDevices = 64;
 constexpr int kSmemMax = 232448;  // a Hopper block's dynamic shared memory
 
@@ -139,7 +180,8 @@ struct Strides {
 
 constexpr int kTcThreads = 256;
 constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kMaxKeyTiles = kMaxT / 8 / kTcWarps;  // 8-key tiles a warp
+// 8-key tiles a warp
+constexpr int kMaxKeyTiles = kResidentMaxT / 8 / kTcWarps;
 constexpr int kRedCols = 64;  // P.V partial sums: key groups x chunk width
 
 // Padded sizes and shared-memory pitches of one bf16 launch. The bf16
@@ -485,7 +527,7 @@ struct F32Shape {
 };
 
 // the most P.V tasks a warp takes: D = 512 in one column chunk
-constexpr int kMaxTasks = kMaxD / 8 / kTcWarps;
+constexpr int kMaxTasks = kResidentMaxD / 8 / kTcWarps;
 
 __host__ __device__ __forceinline__ int v_buffers(const F32Shape& s) {
   return s.kv < s.t_pad ? 2 : 1;
@@ -496,20 +538,22 @@ __host__ __device__ __forceinline__ size_t smem_bytes_f32(const F32Shape& s) {
               2 * kTcWarps * kQTile + kQTile * kRedCols);
 }
 
-// cp.async of w floats (w = 4, 2 or 1: 16, 8 or 4 bytes); the first n come
-// from src, the rest are zero-filled.
-__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
-                                             int w, int n) {
+// cp.async of w elements (16, 8 or 4 bytes: w = 4, 2 or 1 floats, 8, 4
+// or 2 bf16); the first n come from src, the rest are zero-filled.
+template <typename T>
+__device__ __forceinline__ void cp_async_elems(T* dst, const T* src, int w,
+                                               int n) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if (w == 4)
+  const int bytes = w * (int)sizeof(T), n_bytes = n * (int)sizeof(T);
+  if (bytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(4 * n));
-  else if (w == 2)
+                 "l"(src), "r"(n_bytes));
+  else if (bytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
-                 "l"(src), "r"(4 * n));
+                 "l"(src), "r"(n_bytes));
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(src), "r"(4 * n));
+                 "l"(src), "r"(n_bytes));
 }
 
 // Wait until at most n (0 to 3) of the latest cp.async groups are still
@@ -525,26 +569,34 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {
     cp_async_wait<0>();
 }
 
-// Stage `rows_fill` rows x `width` fp32 columns into shared memory of
-// pitch `ld`: row r < rows takes columns [0, cols) of source row r (whose
-// first column is element `off` of the row; row stride `st`); columns
-// [cols, width) and rows [rows, rows_fill) are zero-filled. The copies, w
-// floats each, cover the w-aligned span of every row (row starts are
+// Stage `rows_fill` rows x `width` columns into shared memory of pitch
+// `ld`: row r < rows takes columns [0, cols) of source row r (whose first
+// column is element `off` of the row; row stride `st`); columns [cols,
+// width) and rows [rows, rows_fill) are zero-filled. The copies, w
+// elements each, cover the w-aligned span of every row (row starts are
 // w-aligned: the host picks w), so column j of row r lands at
 // dst[r * ld + off % w + j]; the span's leading extra columns are never
-// read.
-__device__ __forceinline__ void stage_f32(float* dst, const float* row0,
-                                          long long off, long long st,
-                                          int rows, int rows_fill, int cols,
-                                          int width, int ld, int w) {
+// read. A copy of one bf16 (rows only 2-byte aligned) has no cp.async
+// form: it is a plain load and store, visible after the next barrier as
+// the others are.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* row0,
+                                           long long off, long long st,
+                                           int rows, int rows_fill, int cols,
+                                           int width, int ld, int w) {
   const int e0 = (int)(off % w);
   const int per_row = (e0 + width + w - 1) / w;
-  const float* src = row0 + (off - e0);
+  const T* src = row0 + (off - e0);
   for (int i = threadIdx.x; i < rows_fill * per_row; i += kTcThreads) {
     const int r = i / per_row;
     const int j = (i - r * per_row) * w;  // the copy's first span column
     const int n = r < rows ? max(0, min(w, e0 + cols - j)) : 0;
-    cp_async_f32(dst + r * ld + j, n > 0 ? src + r * st + j : src, w, n);
+    const T* from = n > 0 ? src + r * st + j : src;
+    if (sizeof(T) == 2 && w == 1)
+      *reinterpret_cast<unsigned short*>(dst + r * ld + j) =
+          n > 0 ? *reinterpret_cast<const unsigned short*>(from) : 0;
+    else
+      cp_async_elems(dst + r * ld + j, from, w, n);
   }
 }
 
@@ -663,19 +715,20 @@ __global__ void __launch_bounds__(kTcThreads)
     float* buf = smem_f32 + (i & 1) * buf_floats;
     const int c = i * sh.kc;
     const int width = min(sh.kc, sh.d_pad - c), cols = min(sh.kc, d - c);
-    stage_f32(buf, q0, qo + c, sq.t, rows, kQTile, cols, width, sh.ldc,
-              sh.wq);
-    stage_f32(buf + kQTile * sh.ldc, k0, ko + c, sk.t, t_len, t_len, cols,
-              width, sh.ldc, sh.wk);
+    stage_rows(buf, q0, qo + c, sq.t, rows, kQTile, cols, width, sh.ldc,
+               sh.wq);
+    stage_rows(buf + kQTile * sh.ldc, k0, ko + c, sk.t, t_len, t_len, cols,
+               width, sh.ldc, sh.wk);
     cp_async_commit();
   };
   // One group per V chunk j: the V columns [c0, c0 + d_chunk) of the keys
   // [j*kv, j*kv + kv) (padded keys zero).
   auto stage_v = [&](int j) {
     const int key0 = j * sh.kv;
-    stage_f32(v_s + (j & 1) * sh.kv * sh.ldv, v + b * sv.b + key0 * sv.t,
-              vo, sv.t, min(sh.kv, t_len - key0), min(sh.kv, sh.t_pad - key0),
-              min(sh.d_chunk, d - c0), sh.d_chunk, sh.ldv, sh.wv);
+    stage_rows(v_s + (j & 1) * sh.kv * sh.ldv, v + b * sv.b + key0 * sv.t,
+               vo, sv.t, min(sh.kv, t_len - key0),
+               min(sh.kv, sh.t_pad - key0), min(sh.d_chunk, d - c0),
+               sh.d_chunk, sh.ldv, sh.wv);
     cp_async_commit();
   };
   auto stage_v_early = [&]() {
@@ -883,6 +936,376 @@ __global__ void __launch_bounds__(kTcThreads)
   }
 }
 
+// ----------------------------------------------------- key-tiled (any T, D)
+
+// The key-tiled path streams K and V through shared memory in tiles of
+// kKeyTile keys, so nothing in it grows with T, and Q and K in chunks of
+// kKtChunk columns, so nothing grows with D; each block's output columns
+// stay at most kKtMaxCols wide (more column chunks on the grid instead).
+constexpr int kKeyTile = 64;    // keys per tile: one 8-key MMA tile a warp
+constexpr int kKtChunk = 64;    // Q / K columns per streamed chunk
+constexpr int kKtMaxCols = 128; // output columns per block at most
+constexpr int kKtTasks = kKtMaxCols / 8 / kTcWarps;  // P.V tasks a warp
+
+// Padded sizes, pitches and copy widths of one key-tiled launch, in
+// elements of the input type (P's pitch in P's own: fp32, or bf16 hi and
+// lo). Pitches as in the two kernels above: fragment loads free of bank
+// conflicts, 16-byte copies landing aligned.
+struct KtShape {
+  int d_pad;       // D padded to the MMA's k step (8 fp32, 16 bf16)
+  int kc;          // Q / K columns per chunk: min(kKtChunk, d_pad)
+  int d_chunk;     // output columns per block, a multiple of 8
+  int k_groups;    // warps that share one 8-column output tile
+  int ldc;         // chunk buffer pitch
+  int ldv;         // V tile pitch
+  int ldp;         // P pitch
+  int wq, wk, wv;  // copy width of q, k and v in elements
+};
+
+template <typename T>
+__host__ __device__ __forceinline__ size_t smem_bytes_kt(const KtShape& s) {
+  // two Q + K chunk buffers, one V tile, P (4 bytes an entry either way),
+  // the row statistics of every warp and the P.V partial sums
+  return sizeof(T) * (2 * (size_t)(kQTile + kKeyTile) * s.ldc +
+                      (size_t)kKeyTile * s.ldv) +
+         4 * ((size_t)kQTile * s.ldp + 2 * kTcWarps * kQTile +
+              kQTile * kRedCols);
+}
+
+// Two neighbouring bf16 values as one 32-bit MMA operand, read as two
+// 16-bit loads: a head slice of odd D may start at an odd element.
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+  return (uint32_t)u[0] | ((uint32_t)u[1] << 16);
+}
+
+// (m, l) := the running max and sum of exp(x - m) over both sides' keys;
+// a side with no key yet has m = -inf and l = 0.
+__device__ __forceinline__ void merge_stats(float& m, float& l, float mo,
+                                            float lo) {
+  const float mn = fmaxf(m, mo);
+  if (mn == -INFINITY) return;
+  l = l * expf(m - mn) + lo * expf(mo - mn);
+  m = mn;
+}
+
+// Grid (B*H, ceil(T/16), n_chunks), as the kernels above: a block owns 16
+// query rows of one (batch, head) and one chunk of output columns. Its
+// work is a sequence of stages, each one cp.async group, issued one stage
+// ahead of the one computed (the copies of stage s + 1 land during stage
+// s's MMAs):
+//   pass 1, for each key tile: the tile's logits over the Q / K chunks,
+//     then each lane's running row max and sum over its keys;
+//   pass 2, for each key tile: the logits again (the same MMAs on the same
+//     data: the same bits), P = exp(s - m) / l in fp32 into shared memory,
+//     then a V stage: P.V over the tile into the output accumulators.
+// The row statistics are merged across the quad and the warps once, after
+// pass 1, in a fixed order. Logits, P and P.V are computed as in the
+// kernels above: bf16 MMAs with P as bf16 hi + lo, or split TF32.
+template <typename T>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    attention_kt(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int t_len,
+                 int n_head, int d, Strides sq, Strides sk, Strides sv,
+                 Strides so, float scale, KtShape sh) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kStep = kF32 ? 8 : 16;  // the MMAs' k step
+  extern __shared__ __align__(16) unsigned char smem_kt[];
+  T* bufs = reinterpret_cast<T*>(smem_kt);  // 2 x (16 + kKeyTile) x ldc
+  const int buf_elems = (kQTile + kKeyTile) * sh.ldc;
+  T* v_s = bufs + 2 * buf_elems;                        // kKeyTile x ldv
+  float* p_f = reinterpret_cast<float*>(v_s + kKeyTile * sh.ldv);
+  __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(p_f);  // 16 x ldp
+  __nv_bfloat16* p_lo = p_hi + kQTile * sh.ldp;                 // 16 x ldp
+  float* red_m = p_f + kQTile * sh.ldp;       // warps x 16
+  float* red_l = red_m + kTcWarps * kQTile;   // warps x 16
+  float* red_pv = red_l + kTcWarps * kQTile;  // 16 x kRedCols
+
+  const int b = blockIdx.x / n_head;
+  const int h = blockIdx.x - b * n_head;
+  const int t0 = blockIdx.y * kQTile;
+  const int c0 = blockIdx.z * sh.d_chunk;
+  const int rows = min(kQTile, t_len - t0);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // MMA fragment row (and column of B / C)
+  const int tg = lane & 3;  // MMA fragment column (pair)
+
+  const T* q0 = q + b * sq.b + t0 * sq.t;
+  const T* k0 = k + b * sk.b;
+  const T* v0 = v + b * sv.b;
+  const long long qo = h * sq.h, ko = h * sk.h, vo = h * sv.h + c0;
+  const int eq = (int)(qo % sh.wq), ek = (int)(ko % sh.wk),
+            ev = (int)(vo % sh.wv);
+  const int n_kc = (sh.d_pad + sh.kc - 1) / sh.kc;    // Q / K chunks
+  const int n_kt = (t_len + kKeyTile - 1) / kKeyTile;  // key tiles
+  const int n_pass1 = n_kt * n_kc;
+  const int n_stages = n_pass1 + n_kt * (n_kc + 1);
+
+  // stage s -> key tile j, chunk i (i == n_kc: the V stage), and the
+  // index of a Q / K stage among all of them (its buffer: index & 1)
+  auto decode = [&](int s, int& j, int& i) {
+    if (s < n_pass1) {
+      j = s / n_kc;
+      i = s - j * n_kc;
+      return s;
+    }
+    const int r = s - n_pass1;
+    j = r / (n_kc + 1);
+    i = r - j * (n_kc + 1);
+    return n_pass1 + j * n_kc + i;
+  };
+  auto issue = [&](int s) {
+    if (s < n_stages) {
+      int j, i;
+      const int idx = decode(s, j, i);
+      const int key0 = j * kKeyTile;
+      const int keys = min(kKeyTile, t_len - key0);
+      if (i == n_kc) {
+        stage_rows(v_s, v0 + key0 * sv.t, vo, sv.t, keys, kKeyTile,
+                   min(sh.d_chunk, d - c0), sh.d_chunk, sh.ldv, sh.wv);
+      } else {
+        T* buf = bufs + (idx & 1) * buf_elems;
+        const int c = i * sh.kc;
+        const int width = min(sh.kc, sh.d_pad - c), cols = min(sh.kc, d - c);
+        stage_rows(buf, q0, qo + c, sq.t, rows, kQTile, cols, width,
+                   sh.ldc, sh.wq);
+        stage_rows(buf + kQTile * sh.ldc, k0 + key0 * sk.t, ko + c, sk.t,
+                   keys, kKeyTile, cols, width, sh.ldc, sh.wk);
+      }
+    }
+    cp_async_commit();  // an empty group past the last stage
+  };
+
+  // logits of this warp's 8 keys of the tile: rows g, g + 8 (three
+  // accumulators for split TF32, one for bf16), one chunk's at a time,
+  // added into xs in fp32 (the tensor cores' own sums lose low bits over
+  // a long D)
+  constexpr int kAcc = kF32 ? 3 : 1;
+  float acc[kAcc][4];
+  float xs[4];
+  // running statistics of this lane's keys (pass 1), then the rows' own
+  float m0 = -INFINITY, l0 = 0.f, m1 = -INFINITY, l1 = 0.f;
+  // P.V accumulators of this warp's tasks, one key tile's at a time,
+  // added into out_acc in fp32 (as xs)
+  constexpr int kAccPV = kF32 ? 2 : 1;
+  float cc[kKtTasks][kAccPV][4];
+  float out_acc[kKtTasks][4] = {};
+  const int n_out_tiles = sh.d_chunk / 8;
+  const int kg = sh.k_groups;
+  const int n_tasks = n_out_tiles * kg;
+  const int grp = warp / n_out_tiles;  // this warp's key steps (kg > 1)
+
+  issue(0);
+  for (int s = 0; s < n_stages; ++s) {
+    issue(s + 1);
+    cp_async_wait<1>();
+    __syncthreads();
+    int j, i;
+    const int idx = decode(s, j, i);
+    const bool pass2 = s >= n_pass1;
+    if (i < n_kc) {
+      // ---- one Q / K chunk of the tile's logits
+#pragma unroll
+      for (int e = 0; e < 4 * kAcc; ++e) acc[e / 4][e % 4] = 0.f;
+      const T* buf = bufs + (idx & 1) * buf_elems;
+      const int width = min(sh.kc, sh.d_pad - i * sh.kc);
+      if constexpr (kF32) {
+        const float* qa = buf + g * sh.ldc + eq + tg;
+        const float* kb = buf + (kQTile + warp * 8 + g) * sh.ldc + ek + tg;
+        for (int kk = 0; kk < width; kk += kStep) {
+          uint32_t a_big[4], a_small[4];
+          load_a_split(qa + kk, sh.ldc, a_big, a_small);
+          mma_split<3>(acc, a_big, a_small, kb + kk, 4);
+        }
+      } else {
+        const __nv_bfloat16* qa = buf + g * sh.ldc + eq + 2 * tg;
+        const __nv_bfloat16* kb =
+            buf + (kQTile + warp * 8 + g) * sh.ldc + ek + 2 * tg;
+        for (int kk = 0; kk < width; kk += kStep) {
+          const uint32_t a[4] = {
+              ld_pair(qa + kk), ld_pair(qa + 8 * sh.ldc + kk),
+              ld_pair(qa + kk + 8), ld_pair(qa + 8 * sh.ldc + kk + 8)};
+          mma_bf16(acc[0], a, ld_pair(kb + kk), ld_pair(kb + kk + 8));
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float part;
+        if constexpr (kF32)
+          part = split_sum<kAcc>(acc, e);
+        else
+          part = acc[0][e];
+        xs[e] = i == 0 ? part : xs[e] + part;
+      }
+      if (i == n_kc - 1) {
+        // the tile's logits are complete: scale, mask the keys past T
+        const int col = warp * 8 + 2 * tg;  // first of this lane's 2 keys
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = j * kKeyTile + col + (e & 1) < t_len ? xs[e] * scale
+                                                       : -INFINITY;
+        if (!pass2) {
+          const float mx0 = fmaxf(x[0], x[1]), mx1 = fmaxf(x[2], x[3]);
+          if (mx0 != -INFINITY)
+            merge_stats(m0, l0, mx0, expf(x[0] - mx0) + expf(x[1] - mx0));
+          if (mx1 != -INFINITY)
+            merge_stats(m1, l1, mx1, expf(x[2] - mx1) + expf(x[3] - mx1));
+          if (j == n_kt - 1) {
+            // across the quad, then each warp's rows into shared memory
+            for (int off = 1; off < 4; off <<= 1) {
+              const float mo0 = __shfl_xor_sync(0xffffffffu, m0, off);
+              const float lo0 = __shfl_xor_sync(0xffffffffu, l0, off);
+              const float mo1 = __shfl_xor_sync(0xffffffffu, m1, off);
+              const float lo1 = __shfl_xor_sync(0xffffffffu, l1, off);
+              merge_stats(m0, l0, mo0, lo0);
+              merge_stats(m1, l1, mo1, lo1);
+            }
+            if (tg == 0) {
+              red_m[warp * kQTile + g] = m0;
+              red_l[warp * kQTile + g] = l0;
+              red_m[warp * kQTile + g + 8] = m1;
+              red_l[warp * kQTile + g + 8] = l1;
+            }
+          }
+        } else {
+          if (j == 0) {
+            // every warp's statistics, merged in warp order
+            m0 = red_m[g];
+            l0 = red_l[g];
+            m1 = red_m[g + 8];
+            l1 = red_l[g + 8];
+            for (int w = 1; w < kTcWarps; ++w) {
+              merge_stats(m0, l0, red_m[w * kQTile + g],
+                          red_l[w * kQTile + g]);
+              merge_stats(m1, l1, red_m[w * kQTile + g + 8],
+                          red_l[w * kQTile + g + 8]);
+            }
+          }
+          // P = exp(s - m) / l (keys past T: exp(-inf) = 0)
+          const float p0 = expf(x[0] - m0) / l0, p1 = expf(x[1] - m0) / l0;
+          const float p2 = expf(x[2] - m1) / l1, p3 = expf(x[3] - m1) / l1;
+          if constexpr (kF32) {
+            float* r0 = p_f + g * sh.ldp + col;
+            r0[0] = p0;
+            r0[1] = p1;
+            r0[8 * sh.ldp] = p2;
+            r0[8 * sh.ldp + 1] = p3;
+          } else {
+            const int r0 = g * sh.ldp + col, r1 = (g + 8) * sh.ldp + col;
+            store_split(p0, p1, p_hi + r0, p_lo + r0);
+            store_split(p2, p3, p_hi + r1, p_lo + r1);
+          }
+        }
+      }
+    } else if (warp < n_tasks) {
+      // ---- V stage: P.V over the tile's keys; a warp's tasks share one
+      // key range (kg > 1 leaves one task a warp)
+#pragma unroll
+      for (int e = 0; e < kKtTasks * kAccPV * 4; ++e)
+        cc[e / (kAccPV * 4)][e / 4 % kAccPV][e % 4] = 0.f;
+      if constexpr (kF32) {
+        const float* pa = p_f + g * sh.ldp + tg;
+        const float* vs = v_s + ev + tg * sh.ldv + g;
+        for (int kk = 8 * grp; kk < kKeyTile; kk += 8 * kg) {
+          uint32_t a_big[4], a_small[4];
+          load_a_split(pa + kk, sh.ldp, a_big, a_small);
+#pragma unroll
+          for (int t = 0; t < kKtTasks; ++t) {
+            const int task = warp + kTcWarps * t;
+            if (task < n_tasks)
+              mma_split<kAccPV>(cc[t], a_big, a_small,
+                                vs + kk * sh.ldv + task % n_out_tiles * 8,
+                                4 * sh.ldv);
+          }
+        }
+      } else {
+        const __nv_bfloat16* pa_hi = p_hi + g * sh.ldp + 2 * tg;
+        const __nv_bfloat16* pa_lo = p_lo + g * sh.ldp + 2 * tg;
+        const unsigned short* vs =
+            reinterpret_cast<const unsigned short*>(v_s) + ev;
+        for (int kk = 16 * grp; kk < kKeyTile; kk += 16 * kg) {
+          const uint32_t hi[4] = {
+              ld32(pa_hi + kk), ld32(pa_hi + 8 * sh.ldp + kk),
+              ld32(pa_hi + kk + 8), ld32(pa_hi + 8 * sh.ldp + kk + 8)};
+          const uint32_t lo[4] = {
+              ld32(pa_lo + kk), ld32(pa_lo + 8 * sh.ldp + kk),
+              ld32(pa_lo + kk + 8), ld32(pa_lo + 8 * sh.ldp + kk + 8)};
+#pragma unroll
+          for (int t = 0; t < kKtTasks; ++t) {
+            const int task = warp + kTcWarps * t;
+            if (task < n_tasks) {
+              // B fragment: V[key][col] for keys kk + 2*tg + {0, 1, 8, 9}
+              const unsigned short* vb =
+                  vs + (kk + 2 * tg) * sh.ldv + task % n_out_tiles * 8 + g;
+              const uint32_t b0 = vb[0] | ((uint32_t)vb[sh.ldv] << 16);
+              const uint32_t b1 =
+                  vb[8 * sh.ldv] | ((uint32_t)vb[9 * sh.ldv] << 16);
+              mma_bf16(cc[t][0], lo, b0, b1);
+              mma_bf16(cc[t][0], hi, b0, b1);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kKtTasks; ++t) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kF32)
+            out_acc[t][e] += split_sum<kAccPV>(cc[t], e);
+          else
+            out_acc[t][e] += cc[t][0][e];
+        }
+      }
+    }
+    __syncthreads();  // stage s consumed: its buffers take stage s + 2
+  }
+
+  // ---- store: one cast at the store, element by element (any D, any
+  // output strides); shared tiles' partial sums added in group order
+  T* ob = o + b * so.b + h * so.h + t0 * so.t;
+  auto store = [&](int r, int col, float x) {
+    if (r < rows && c0 + col < d) {
+      if constexpr (kF32)
+        ob[r * so.t + c0 + col] = x;
+      else
+        ob[r * so.t + c0 + col] = __float2bfloat16_rn(x);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kKtTasks; ++t) {
+    const int task = warp + kTcWarps * t;
+    if (task < n_tasks) {
+      const float* c = out_acc[t];
+      const int col = task % n_out_tiles * 8 + 2 * tg;
+      if (kg == 1) {
+        store(g, col, c[0]);
+        store(g, col + 1, c[1]);
+        store(g + 8, col, c[2]);
+        store(g + 8, col + 1, c[3]);
+      } else {
+        float* red = red_pv + (grp * kQTile + g) * sh.d_chunk + col;
+        red[0] = c[0];
+        red[1] = c[1];
+        red[8 * sh.d_chunk] = c[2];
+        red[8 * sh.d_chunk + 1] = c[3];
+      }
+    }
+  }
+  if (kg > 1) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kQTile * sh.d_chunk; i += kTcThreads) {
+      const int r = i / sh.d_chunk;
+      const int col = i - r * sh.d_chunk;
+      float x = 0.f;
+      for (int gi = 0; gi < kg; ++gi)
+        x += red_pv[(gi * kQTile + r) * sh.d_chunk + col];
+      store(r, col, x);
+    }
+  }
+}
+
 // ---------------------------------------------------------------- host
 
 int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -916,6 +1339,19 @@ cudaError_t launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
   return cudaGetLastError();
 }
 
+// The padded sizes and pitches of launch_bf16 that do not depend on the
+// column chunk; returns the widest chunk of V columns that fits in shared
+// memory beside Q, K, P and the reductions (under 8: K does not fit).
+long long tc_room(int t_len, int d, TcShape& sh) {
+  sh.t_pad = round_up(t_len, 16);
+  sh.d_pad = round_up(d, 16);
+  sh.ldk = sh.d_pad + 8;
+  sh.ldp = sh.t_pad + 8;
+  sh.ldv = 8;
+  const long long fixed = (long long)smem_bytes_tc(sh) - 2LL * sh.t_pad * 8;
+  return (kSmemMax - fixed) / (2LL * sh.t_pad) - 8;
+}
+
 cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         const __nv_bfloat16* v, __nv_bfloat16* o, int batch,
                         int t_len, int n_head, int d, Strides sq, Strides sk,
@@ -923,16 +1359,10 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                         cudaStream_t stream) {
   if (d % 2 != 0) return cudaErrorInvalidValue;
   TcShape sh;
-  sh.t_pad = round_up(t_len, 16);
-  sh.d_pad = round_up(d, 16);
-  sh.ldk = sh.d_pad + 8;
-  sh.ldp = sh.t_pad + 8;
-  // the widest column chunk that fits beside Q, K, P and the reductions
-  sh.ldv = 8;
-  const long long fixed = (long long)smem_bytes_tc(sh) - 2LL * sh.t_pad * 8;
-  const long long room = (kSmemMax - fixed) / (2LL * sh.t_pad) - 8;
+  const long long room = tc_room(t_len, d, sh);
   if (room < 8) return cudaErrorInvalidValue;  // K does not fit
-  const int max_chunk = (int)(room < kMaxD ? room : kMaxD) / 8 * 8;
+  const int max_chunk =
+      (int)(room < kResidentMaxD ? room : kResidentMaxD) / 8 * 8;
   // enough column chunks for about one block per SM
   int sms = 0;
   cudaError_t err =
@@ -970,12 +1400,14 @@ cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                                  so, scale, sh, grid, dev, stream);
 }
 
-// Copy width in floats (4, 2 or 1) of one fp32 tensor: the widest to which
-// every row start is aligned (the data pointer, and the batch and row
-// strides where there is more than one batch or row).
+// Copy width in elements of one tensor (16, 8, 4 or 2 bytes; 4 bytes at
+// least for fp32): the widest to which every row start is aligned (the
+// data pointer, and the batch and row strides where there is more than
+// one batch or row).
+template <typename T>
 int copy_width(const void* p, const Strides& s, int batch, int t_len) {
-  for (int w = 4; w > 1; w >>= 1)
-    if (reinterpret_cast<uintptr_t>(p) % (4 * w) == 0 &&
+  for (int w = 16 / (int)sizeof(T); w > 1; w >>= 1)
+    if (reinterpret_cast<uintptr_t>(p) % (sizeof(T) * w) == 0 &&
         (batch == 1 || s.b % w == 0) && (t_len == 1 || s.t % w == 0))
       return w;
   return 1;
@@ -1031,9 +1463,9 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
   sh.t_pad = round_up(t_len, 8);
   sh.d_pad = round_up(d, 8);
   sh.ldp = sh.t_pad + 4;
-  sh.wq = copy_width(q, sq, batch, t_len);
-  sh.wk = copy_width(k, sk, batch, t_len);
-  sh.wv = copy_width(v, sv, batch, t_len);
+  sh.wq = copy_width<float>(q, sq, batch, t_len);
+  sh.wk = copy_width<float>(k, sk, batch, t_len);
+  sh.wv = copy_width<float>(v, sv, batch, t_len);
   // as many column chunks as keep the grid within one block per SM: a
   // block's registers leave no room for a second one, so where
   // launch_bf16 rounds up, a grid past the SM count would run a second
@@ -1089,15 +1521,69 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                                         sv, so, scale, sh, grid, dev, stream);
 }
 
+template <typename T>
+cudaError_t launch_kt(const T* q, const T* k, const T* v, T* o, int batch,
+                      int t_len, int n_head, int d, Strides sq, Strides sk,
+                      Strides sv, Strides so, float scale, int dev,
+                      cudaStream_t stream) {
+  constexpr bool f32 = std::is_same<T, float>::value;
+  KtShape sh;
+  sh.d_pad = round_up(d, f32 ? 8 : 16);
+  sh.kc = sh.d_pad < kKtChunk ? sh.d_pad : kKtChunk;
+  sh.ldc = sh.kc + (f32 ? 4 : 8);
+  sh.ldp = kKeyTile + (f32 ? 4 : 8);
+  sh.wq = copy_width<T>(q, sq, batch, t_len);
+  sh.wk = copy_width<T>(k, sk, batch, t_len);
+  sh.wv = copy_width<T>(v, sv, batch, t_len);
+  // column chunks of at most kKtMaxCols, and more of them, down to 8
+  // columns, while the grid has fewer blocks than the card has SMs
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long d8 = round_up(d, 8);
+  const long long base = (long long)batch * n_head * ceil_div(t_len, kQTile);
+  long long n_chunks = (d8 + kKtMaxCols - 1) / kKtMaxCols;
+  const long long fill = (sms + base - 1) / base;
+  if (fill > n_chunks) n_chunks = fill < d8 / 8 ? fill : d8 / 8;
+  sh.d_chunk = (int)((d8 + n_chunks - 1) / n_chunks + 7) / 8 * 8;
+  n_chunks = (d8 + sh.d_chunk - 1) / sh.d_chunk;
+  sh.ldv = f32 ? round_up(sh.d_chunk, 16) + 8 : sh.d_chunk + 8;
+  const int n_out_tiles = sh.d_chunk / 8;
+  sh.k_groups = n_out_tiles >= kTcWarps ? 1 : kTcWarps / n_out_tiles;
+  // the grid's limits: 2^31 - 1 blocks along x, 65535 along y and z
+  const long long rows = ceil_div(t_len, kQTile);
+  if ((long long)batch * n_head > 2147483647LL || rows > 65535 ||
+      n_chunks > 65535)
+    return cudaErrorInvalidValue;
+  static unsigned long long raised = 0;
+  const cudaError_t e2 = raise_smem(attention_kt<T>, &raised, dev, kSmemMax);
+  if (e2 != cudaSuccess) return e2;
+  const dim3 grid(batch * n_head, (unsigned)rows, (unsigned)n_chunks);
+  attention_kt<T><<<grid, kTcThreads, smem_bytes_kt<T>(sh), stream>>>(
+      q, k, v, o, t_len, n_head, d, sq, sk, sv, so, scale, sh);
+  return cudaGetLastError();
+}
+
+// Row starts and strides the resident-K bf16 kernel reads: 16-byte
+// aligned rows (batch and row strides multiples of 8 elements), an even
+// head stride; the output stored as bf16 pairs.
+bool bf16_rows_readable(const void* p, const Strides& s, int batch,
+                        int t_len, int align, int mult) {
+  return reinterpret_cast<uintptr_t>(p) % align == 0 && s.h % 2 == 0 &&
+         (batch == 1 || s.b % mult == 0) && (t_len == 1 || s.t % mult == 0);
+}
+
 }  // namespace
 
 extern "C" {
 
 // One call's arguments, packed by the wrapper (ops/attention.py) in this
-// order. Strides are in elements, for (b, t, h); the D stride must be 1.
-// dtype: 0 = float32, 1 = bfloat16. bf16 needs D even, 16-byte aligned
-// data, batch and row strides that are multiples of 8 and an even head
-// stride.
+// order. Strides are in elements, for (b, t, h); the D stride must be 1
+// (the wrapper copies a tensor whose D stride is not). dtype: 0 =
+// float32, 1 = bfloat16. key_tiled: 0 = the rule in the header, 1 = the
+// key-tiled kernel at any shape (for measuring the kernels against each
+// other).
 struct AttentionArgs {
   const void* q;
   const void* k;
@@ -1105,15 +1591,37 @@ struct AttentionArgs {
   void* o;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st,
       o_sh;
-  int batch, t_len, n_head, d, dtype;
+  int batch, t_len, n_head, d, dtype, key_tiled;
 };
+
+// The dispatch rule (header): 1 = the resident kernels, inside their
+// domain (bf16: an even D, K within shared memory and rows the kernel
+// reads), 2 = key-tiled; -1 for arguments no kernel takes.
+int tf_attention_route(const AttentionArgs* a) {
+  const int batch = a->batch, t_len = a->t_len, d = a->d;
+  if (batch < 1 || a->n_head < 1 || t_len < 1 || d < 1 ||
+      (a->dtype != 0 && a->dtype != 1))
+    return -1;
+  if (t_len > kResidentMaxT || d > kResidentMaxD) return 2;
+  if (a->dtype == 0) return 1;
+  const Strides sq{a->q_sb, a->q_st, a->q_sh}, sk{a->k_sb, a->k_st, a->k_sh},
+      sv{a->v_sb, a->v_st, a->v_sh}, so{a->o_sb, a->o_st, a->o_sh};
+  TcShape unused;
+  const bool resident =
+      d % 2 == 0 && tc_room(t_len, d, unused) >= 8 &&
+      bf16_rows_readable(a->q, sq, batch, t_len, 16, 8) &&
+      bf16_rows_readable(a->k, sk, batch, t_len, 16, 8) &&
+      bf16_rows_readable(a->v, sv, batch, t_len, 16, 8) &&
+      bf16_rows_readable(a->o, so, batch, t_len, 4, 2);
+  return resident ? 1 : 2;
+}
 
 // Returns a cudaError_t (0 = launched).
 int tf_attention_forward(const AttentionArgs* a, void* stream) {
   const int batch = a->batch, t_len = a->t_len, n_head = a->n_head, d = a->d;
-  if (batch < 1 || n_head < 1 || t_len < 1 || t_len > kMaxT || d < 1 ||
-      d > kMaxD)
-    return (int)cudaErrorInvalidValue;
+  const int rule = tf_attention_route(a);
+  if (rule < 0) return (int)cudaErrorInvalidValue;
+  const bool resident = rule == 1 && !a->key_tiled;
   const Strides sq{a->q_sb, a->q_st, a->q_sh}, sk{a->k_sb, a->k_st, a->k_sh},
       sv{a->v_sb, a->v_st, a->v_sh}, so{a->o_sb, a->o_st, a->o_sh};
   int dev = 0;
@@ -1121,18 +1629,27 @@ int tf_attention_forward(const AttentionArgs* a, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)d));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (a->dtype == 0)
-    return (int)launch_f32(
-        static_cast<const float*>(a->q), static_cast<const float*>(a->k),
-        static_cast<const float*>(a->v), static_cast<float*>(a->o), batch,
-        t_len, n_head, d, sq, sk, sv, so, scale, dev, s);
-  if (a->dtype == 1)
-    return (int)launch_bf16(static_cast<const __nv_bfloat16*>(a->q),
-                            static_cast<const __nv_bfloat16*>(a->k),
-                            static_cast<const __nv_bfloat16*>(a->v),
-                            static_cast<__nv_bfloat16*>(a->o), batch, t_len,
-                            n_head, d, sq, sk, sv, so, scale, dev, s);
-  return (int)cudaErrorInvalidValue;
+  const bool f32 = a->dtype == 0;
+  if (f32) {
+    const float *q = static_cast<const float*>(a->q),
+                *k = static_cast<const float*>(a->k),
+                *v = static_cast<const float*>(a->v);
+    float* o = static_cast<float*>(a->o);
+    return (int)(resident ? launch_f32(q, k, v, o, batch, t_len, n_head, d,
+                                       sq, sk, sv, so, scale, dev, s)
+                          : launch_kt<float>(q, k, v, o, batch, t_len, n_head,
+                                             d, sq, sk, sv, so, scale, dev,
+                                             s));
+  }
+  const __nv_bfloat16 *q = static_cast<const __nv_bfloat16*>(a->q),
+                      *k = static_cast<const __nv_bfloat16*>(a->k),
+                      *v = static_cast<const __nv_bfloat16*>(a->v);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(a->o);
+  return (int)(resident ? launch_bf16(q, k, v, o, batch, t_len, n_head, d, sq,
+                                      sk, sv, so, scale, dev, s)
+                        : launch_kt<__nv_bfloat16>(q, k, v, o, batch, t_len,
+                                                   n_head, d, sq, sk, sv, so,
+                                                   scale, dev, s));
 }
 
 }  // extern "C"

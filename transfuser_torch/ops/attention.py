@@ -1,19 +1,23 @@
 """Fused multi-head attention for the token-fusion GPT.
 
 ``attention(q, k, v)`` computes softmax(q k^T / sqrt(D)) v over
-(B, T, H, D) tensors. On a CUDA tensor it launches the hand-written kernel
-``csrc/attention.cu`` (the port of the Pallas TPU kernel
-transfuser_tpu/ops/attention.py:_attn_kernel; the kernel source says what
-bounds it on Hopper and how its design answers that) or raises. On a CPU
-tensor it computes the same function with ``reference_attention``, which
-is the plain PyTorch version the tests and ``chip_smoke.py`` hold the
-kernel against. The kernel dispatches on dtype, both on the tensor cores:
-bf16 (the main path) with bf16 operands, fp32 as split TF32 (each operand
-x = big + small, both TF32, and three products big.big + big.small +
-small.big with fp32 sums). One TF32 product keeps 10 mantissa bits and
-would miss the fp32 tolerance of 1e-5 by 40-54x; the split keeps about
-22, within it (tests/test_torch_attention.py emulates both). fp32 takes
-any strides with a unit D stride and 4-byte alignment.
+(B, T, H, D) tensors of any size. On a CUDA tensor it launches the
+hand-written kernel ``csrc/attention.cu`` (the port of the Pallas TPU
+kernel transfuser_tpu/ops/attention.py:_attn_kernel; the kernel source
+says what bounds it on Hopper and how its design answers that) or raises.
+On a CPU tensor it computes the same function with ``reference_attention``,
+which is the plain PyTorch version the tests and ``chip_smoke.py`` hold
+the kernel against. The kernel computes on the tensor cores in either
+dtype: bf16 (the main path) with bf16 operands, fp32 as split TF32 (each
+operand x = big + small, both TF32, and three products big.big +
+big.small + small.big with fp32 sums). One TF32 product keeps 10 mantissa
+bits and would miss the fp32 tolerance of 1e-5 by 40-54x; the split keeps
+about 22, within it (tests/test_torch_attention.py emulates both). Which
+of its kernels runs is a rule on the shape, in the kernel's header: the
+resident kernels for T <= 1024 and D <= 512 (bf16 also needs an even D,
+rows it can read and K within shared memory), the key-tiled kernel for
+every other shape. ``_attention_key_tiled`` forces the key-tiled kernel,
+for the comparison the rule rests on (chip_smoke.py, the card tests).
 
 Both follow the Pallas kernel, not the JAX package's einsum fallback: the
 probabilities P stay fp32 through P.V (the fallback casts P to the input
@@ -21,10 +25,16 @@ dtype first). Forward only: the Pallas kernel has no VJP either. On the
 CPU the plain version is differentiable; on the card the wrapper raises
 when autograd would need a gradient through it (grad mode on and an
 input that requires grad), rather than hand back an output with no
-``grad_fn``. bf16 inputs whose row strides the kernel cannot read (the
-tensor-parallel GPT's 2-head shards) are first copied into padded rows
-(``_bf16_rows``). Training with attention dropout takes the GPT's explicit
+``grad_fn``. Training with attention dropout takes the GPT's explicit
 probabilities instead (models/gpt.py).
+
+Layout steps before a launch, each a copy counted in ``copies``: a tensor
+whose D stride is not 1 (and D > 1) is made contiguous ("d_stride"); a
+bf16 tensor with an even D whose rows the resident kernel cannot read
+(the tensor-parallel GPT's 2-head shards) is copied into padded rows
+("bf16_rows", ``_bf16_rows``), but only where the dispatch rule then
+picks the resident kernel (it asks the rule first). The key-tiled kernel
+reads any other layout in place, odd bf16 D included.
 
 Under an active ``ops.flops.FlopCounter`` a call adds its 4 B H T^2 D
 operations by formula (the counter cannot see the kernel), and the plain
@@ -36,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
+from typing import Dict
 
 import torch
 
@@ -43,13 +54,15 @@ from . import flops, kernels
 from .dtypes import acc_dtype
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_T = 1024  # a block's 16 logit rows live in registers (attention.cu)
-_MAX_D = 512
 # csrc/attention.cu's AttentionArgs: q, k, v, out pointers; (b, t, h)
-# strides of each; B, T, H, D, dtype code (one packed argument costs the
-# host less than 22 ctypes conversions)
-_ARGS = struct.Struct("<4Q12q5i4x")
+# strides of each; B, T, H, D, dtype code, key_tiled (one packed argument
+# costs the host less than 23 ctypes conversions)
+_ARGS = struct.Struct("<4Q12q6i")
 _ARGTYPES = (ctypes.c_char_p, ctypes.c_void_p)
+
+# the layout copies the wrapper made on the card, by kind (a running
+# count, as kernels.launches)
+copies: Dict[str, int] = {"d_stride": 0, "bf16_rows": 0}
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor,
@@ -63,6 +76,9 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Refuse what JAX's attention() would refuse too: not three (B, T, H,
+    D) tensors of one shape, a dtype other than fp32 or bf16 (or mixed),
+    tensors on more than one device."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(
             f"attention takes three (B, T, H, D) tensors of one shape; got "
@@ -72,50 +88,140 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    b, t, _, d = q.shape
-    if not (1 <= t <= _MAX_T and 1 <= d <= _MAX_D):
-        raise ValueError(f"attention kernel takes 1 <= T <= {_MAX_T} and "
-                         f"1 <= D <= {_MAX_D}; got T={t}, D={d}")
-    bf16 = q.dtype == torch.bfloat16
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        sb, st, sh, sd = x.stride()
-        if sd != 1:
-            raise ValueError(f"attention kernel needs a unit D stride; "
-                             f"{name} has strides {x.stride()}")
-        # the bf16 kernel copies 16-byte-aligned spans of rows and reads
-        # bf16 pairs
-        if bf16 and (d % 2 or x.data_ptr() % 16 or sh % 2 or
-                     (b > 1 and sb % 8) or (t > 1 and st % 8)):
-            raise ValueError(f"the bf16 attention kernel needs an even D, "
-                             f"16-byte aligned data, batch and row strides "
-                             f"that are multiples of 8 and an even head "
-                             f"stride; {name} has D={d}, strides "
-                             f"{x.stride()}")
 
 
-def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
-    """``x``, or for a bf16 tensor with even D whose strides the bf16
-    kernel cannot read, a copy into a buffer whose D is padded so that
-    the head stride is even and the row and batch strides are multiples
-    of 8 (the kernel reads the unpadded D). The 4-head GPT never needs
-    it; its tensor-parallel shards of 2 heads at D = 18, 54 and 378 do
-    (row stride 2D)."""
-    b, t, h, d = x.shape
-    sb, st, sh, sd = x.stride()
-    if x.dtype != torch.bfloat16 or d % 2 or (
-            sd == 1 and x.data_ptr() % 16 == 0 and sh % 2 == 0 and
-            (b == 1 or sb % 8 == 0) and (t == 1 or st % 8 == 0)):
-        return x  # readable as it is, or refused by _check
+def _padded_width(h: int, d: int) -> int:
+    """The smallest even D' >= d with h * D' a multiple of 8: the row
+    pitch of ``_bf16_rows``' buffer."""
     padded = d
     while (h * padded) % 8:
         padded += 2
-    rows = x.new_empty((b, t, h, padded))[..., :d]
+    return padded
+
+
+def _view(x: torch.Tensor, pad: bool = False):
+    """(pointer, (b, t, h) strides) of ``x`` as the layout steps hand it to
+    the kernel: as it lies, or described, not made, the copy it takes
+    (contiguous for a D stride other than 1, padded rows for ``pad``;
+    pointer 0: a new buffer is aligned)."""
+    b, t, h, d = x.shape
+    if pad:
+        w = _padded_width(h, d)
+        return 0, (t * h * w, h * w, w)
+    if d > 1 and x.stride(-1) != 1:
+        return 0, (t * h * d, h * d, d)
+    return x.data_ptr(), x.stride()[:3]
+
+
+def _unreadable_rows(x: torch.Tensor) -> bool:
+    """Whether ``x`` is bf16 with an even D and rows, after the D-stride
+    step, that the resident kernel cannot read in place (it needs 16-byte
+    aligned rows, batch and row strides multiples of 8 and an even head
+    stride: csrc/attention.cu bf16_rows_readable)."""
+    b, t, h, d = x.shape
+    if x.dtype != torch.bfloat16 or d % 2:
+        return False
+    ptr, (sb, st, sh) = _view(x)
+    return not (ptr % 16 == 0 and sh % 2 == 0 and (b == 1 or sb % 8 == 0)
+                and (t == 1 or st % 8 == 0))
+
+
+def _unit_d_stride(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a contiguous copy where its D stride is not 1 (the
+    kernels read rows of D)."""
+    if x.shape[-1] > 1 and x.stride(-1) != 1:
+        copies["d_stride"] += 1
+        return x.contiguous()
+    return x
+
+
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or where ``_unreadable_rows(x)``, a copy into a buffer whose
+    D is padded so that the head stride is even and the row and batch
+    strides are multiples of 8 (the kernel reads the unpadded D). The
+    4-head GPT never needs it; its tensor-parallel shards of 2 heads at
+    D = 18, 54 and 378 do (row stride 2D)."""
+    if not _unreadable_rows(x):
+        return x
+    b, t, h, d = x.shape
+    rows = x.new_empty((b, t, h, _padded_width(h, d)))[..., :d]
+    copies["bf16_rows"] += 1
     return rows.copy_(x)
+
+
+def _pack(views, shape, dtype: torch.dtype, key_tiled: bool = False) -> bytes:
+    """AttentionArgs for q, k, v and out, each as (pointer, strides)."""
+    return _ARGS.pack(*(ptr for ptr, _ in views),
+                      *(s for _, strides in views for s in strides),
+                      *shape, _DTYPE_CODE[dtype], int(key_tiled))
+
+
+def _route_code(args: bytes) -> int:
+    """csrc/attention.cu's dispatch rule on packed arguments: 1 the
+    resident kernels, 2 the key-tiled kernel, -1 none (copies and
+    launches nothing)."""
+    fn = kernels.function("attention", "tf_attention_route",
+                          (ctypes.c_char_p,))
+    return fn(args)
+
+
+def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The layout steps for q, k, v, decided but not taken: whether rows
+    the resident kernel cannot read get padded (only where the rule then
+    picks it), and the (pointer, strides) of q, k, v and out that the
+    kernel would read."""
+    unreadable = [_unreadable_rows(x) for x in (q, k, v)]
+
+    def views(pad):
+        ins = [_view(x, pad and u) for x, u in zip((q, k, v), unreadable)]
+        b, t, h, d = q.shape
+        out = ((t * h * d, h * d, d) if ins[0][0] == 0 else
+               torch.empty_like(q, device="meta").stride()[:3])
+        return ins + [(0, out)]
+
+    pad = any(unreadable) and _route_code(
+        _pack(views(True), q.shape, q.dtype)) == 1
+    return pad, views(pad)
+
+
+def _layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The wrapper's layout steps (module docstring): q, k, v as the
+    kernel reads them, and the output buffer (q's layout where dense,
+    else contiguous)."""
+    pad, _ = _plan(q, k, v)
+    q, k, v = (_bf16_rows(_unit_d_stride(x)) if pad else _unit_d_stride(x)
+               for x in (q, k, v))
+    return q, k, v, torch.empty_like(q)
+
+
+def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """"resident" or "key_tiled": the kernel ``attention`` launches for
+    these CUDA inputs, by the dispatch rule (csrc/attention.cu) on the
+    layout its steps would give; copies and launches nothing."""
+    _check(q, k, v)
+    _, views = _plan(q, k, v)
+    code = _route_code(_pack(views, q.shape, q.dtype))
+    if code not in (1, 2):
+        raise ValueError(f"no attention kernel takes {tuple(q.shape)} "
+                         f"{q.dtype}")
+    return "resident" if code == 1 else "key_tiled"
 
 
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """(B, T, H, D) fused attention; the output has q's dtype."""
+    return _forward(q, k, v, key_tiled=False)
+
+
+def _attention_key_tiled(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """``attention`` on the key-tiled kernel at any shape on a card,
+    whatever the rule picks: for measuring the kernels against each other
+    (chip_smoke.py, tests/test_torch_kernels_cuda.py)."""
+    return _forward(q, k, v, key_tiled=True)
+
+
+def _forward(q, k, v, key_tiled: bool) -> torch.Tensor:
     dev = q.device
     if q.dim() == 4:
         flops.count("attention", flops.attention_flops(*q.shape))
@@ -124,26 +230,23 @@ def attention(q: torch.Tensor, k: torch.Tensor,
             return reference_attention(q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"attention runs on CUDA or CPU, not {dev}")
+    _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
         raise RuntimeError(
             "the attention kernel is forward only (the Pallas kernel has no "
             "VJP either): call it under torch.no_grad(), or train with "
             "attn_pdrop > 0, which takes the explicit-probabilities branch")
-    if q.dim() == 4 and q.shape == k.shape == v.shape:
-        q, k, v = (_bf16_rows(x) for x in (q, k, v))
-    _check(q, k, v)
-    out = torch.empty_like(q)  # q's layout where dense, else contiguous
-    b, t, h, d = q.shape
-    args = _ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                      *v.stride()[:3], *out.stride()[:3], b, t, h, d,
-                      _DTYPE_CODE[q.dtype])
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    q, k, v, out = _layout(q, k, v)
     err = kernels.call(
         kernels.function("attention", "tf_attention_forward", _ARGTYPES),
-        dev, args)
+        dev, _pack([_view(x) for x in (q, k, v, out)], q.shape, q.dtype,
+                   key_tiled))
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
-                           f"{err} at shape {tuple(q.shape)} {q.dtype}")
+                           f"{err} at shape {tuple(q.shape)} {q.dtype}"
+                           f"{', key-tiled' if key_tiled else ''}")
     kernels.count_launch("attention")
     return out

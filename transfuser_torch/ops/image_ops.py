@@ -3,14 +3,16 @@
 Public functions take and return the JAX package's NHWC layout; each has
 an ``_nchw`` twin that the port's modules call.
 
-  * ``adaptive_avg_pool``: nn.AdaptiveAvgPool2d. TransFuser only ever pools
-    by exact divisors (e.g. 40x176 -> 5x22 is 8x8 windows), which is all
-    this port supports; anything else raises.
+  * ``adaptive_avg_pool``: nn.AdaptiveAvgPool2d. Exact divisors (the
+    shipped anchors: 40x176 -> 5x22 is 8x8 windows) take a reshape and a
+    mean, as the JAX op does; any other size takes torch's general windows
+    [floor(i*H/oh), ceil((i+1)*H/oh)), upsampling included.
   * ``resize_bilinear``: F.interpolate(mode='bilinear') with either
     align_corners semantics. With align_corners=False the JAX package
-    calls jax.image.resize, which antialiases when it downsamples; the
-    model only ever upsamples there, so a downsampling call raises
-    instead of silently differing.
+    calls jax.image.resize(method="linear"), which antialiases along an
+    axis that shrinks: a call that shrinks either axis applies that
+    function's triangle weights (``_linear_weights``) by two matrix
+    products; an upsample stays F.interpolate, which equals it there.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import flops
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -37,14 +41,12 @@ def adaptive_avg_pool_nchw(x: torch.Tensor,
     n, c, h, w = x.shape
     oh, ow = out_hw
     if h % oh or w % ow:
-        raise ValueError(
-            f"adaptive_avg_pool supports exact divisors only: {h}x{w} -> "
-            f"{oh}x{ow}")
+        return F.adaptive_avg_pool2d(x, (oh, ow))
     return x.reshape(n, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """NHWC adaptive average pool to ``out_hw`` (exact divisors)."""
+    """NHWC adaptive average pool to ``out_hw``."""
     return to_nhwc(adaptive_avg_pool_nchw(to_nchw(x), out_hw))
 
 
@@ -63,18 +65,45 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return to_nhwc(F.max_pool2d(to_nchw(x), window, stride, padding))
 
 
+def _linear_weights(in_size: int, out_size: int,
+                    x: torch.Tensor) -> torch.Tensor:
+    """(in_size, out_size) weights of jax.image.resize(method="linear")
+    along one axis, in x's dtype and on its device: the triangle kernel,
+    widened by in/out where the axis shrinks (antialiasing), each column
+    normalised to sum 1 (jax/_src/image/scale.py:compute_weight_mat with
+    scale out/in and no translation; computed in fp32 as there)."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    sample = (torch.arange(out_size, **f32) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(in_size, **f32)[:, None]).abs()
+    weights = (1.0 - dist / kernel_scale).clamp(min=0.0)
+    total = weights.sum(dim=0, keepdim=True)
+    eps = torch.finfo(torch.float32).eps
+    weights = torch.where(total.abs() > 1000.0 * eps,
+                          weights / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, 0.0).to(x.dtype)
+
+
 def resize_bilinear_nchw(x: torch.Tensor, out_hw: Tuple[int, int],
                          align_corners: bool = False) -> torch.Tensor:
     h, w = x.shape[2:]
     oh, ow = out_hw
     if (oh, ow) == (h, w):
         return x
-    if not align_corners and (oh < h or ow < w):
-        raise ValueError(
-            f"resize_bilinear(align_corners=False) only upsamples: the JAX "
-            f"package antialiases a downsample ({h}x{w} -> {oh}x{ow})")
-    return F.interpolate(x, size=(oh, ow), mode="bilinear",
-                         align_corners=align_corners)
+    if align_corners or (oh >= h and ow >= w):
+        return F.interpolate(x, size=(oh, ow), mode="bilinear",
+                             align_corners=align_corners)
+    # a shrinking axis: jax.image.resize's antialiased weights along each
+    # axis that changes (as it contracts only those); uncounted by
+    # ops.flops, as F.interpolate is
+    with flops.uncounted():
+        if ow != w:
+            x = torch.matmul(x, _linear_weights(w, ow, x))
+        if oh != h:
+            x = torch.matmul(_linear_weights(h, oh, x).t(), x)
+    return x
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],

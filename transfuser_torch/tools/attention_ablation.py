@@ -120,7 +120,7 @@ def main() -> int:
         out = torch.empty_like(q)
         args = _ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                          *v.stride()[:3], *out.stride()[:3], *shape, 0)
+                          *v.stride()[:3], *out.stride()[:3], *shape, 0, 0)
         for name, fn in fns.items():
             def call(fn=fn):
                 err = fn(args, stream)

@@ -19,16 +19,15 @@ in-graph CenterNet targets, AdamW, ZeRO-1 and the tensor-parallel GPT)
 over N gloo ranks on the CPU, each a subprocess of this module, on a
 (data x model) mesh with model = 2 when N is even, at the JAX dry run's
 tiny config: ``resnet_micro`` trunks, 64x128 image, 64x64 LiDAR, 40x40
-BEV, 2 GPT layers, fp32, a synthetic batch of max(2 x data, 2). One
-difference: the GPT's anchors are 2x4 (image) and 2x2 (LiDAR), not the
-flagship's 5x22 and 8x8. The port's anchor pool takes exact divisors only
-and its resize refuses a downsample (the flagship never needs either);
-at 64x128 the JAX package pools 2x4 features to 5x22 anchors and
-antialiases them back. Rank 0 prints ``dryrun_multichip ok: mesh=(D x M),
-step=1, loss_total=...``; a non-finite loss or a failed rank exits
-non-zero. The JAX entry's re-exec into a scrubbed CPU process (its caller
-may have claimed the TPU already) is not carried over: the ranks here are
-always fresh processes, pinned to the CPU.
+BEV, 2 GPT layers with the flagship's 5x22 / 8x8 anchors (the 2x4 image
+features pool up to 5x22 and are resized back down), fp32, a synthetic
+batch of max(2 x data, 2). The ranks meet through a file in a temporary
+directory (no port to race for). Rank 0 prints ``dryrun_multichip ok:
+mesh=(D x M), step=1, loss_total=...``; a non-finite loss, a failed rank
+or a run past ``timeout_s`` (default 900 s) exits non-zero. The JAX
+entry's re-exec into a scrubbed CPU process (its caller may have claimed
+the TPU already) is not carried over: the ranks here are always fresh
+processes, pinned to the CPU.
 """
 
 from __future__ import annotations
@@ -37,7 +36,6 @@ import dataclasses
 import json
 import math
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -96,16 +94,14 @@ def entry(device: str = "cuda") -> Tuple[Callable, tuple]:
 # ---------------------------------------------------------------- dryrun
 
 def dryrun_config() -> GlobalConfig:
-    """The JAX dry run's tiny config, with anchors the port can pool to."""
+    """The JAX dry run's tiny config (__graft_entry__.py)."""
     cfg = GlobalConfig()
     sensors = dataclasses.replace(cfg.sensors, img_resolution=(64, 128),
                                   lidar_resolution_width=64,
                                   lidar_resolution_height=64)
     bev = dataclasses.replace(cfg.bev, bev_resolution_width=40,
                               bev_resolution_height=40)
-    gpt = dataclasses.replace(cfg.model.gpt, n_layer=2, img_vert_anchors=2,
-                              img_horz_anchors=4, lidar_vert_anchors=2,
-                              lidar_horz_anchors=2)
+    gpt = dataclasses.replace(cfg.model.gpt, n_layer=2)
     model = dataclasses.replace(cfg.model, image_architecture="resnet_micro",
                                 lidar_architecture="resnet_micro", gpt=gpt)
     return cfg.replace(sensors=sensors, bev=bev, model=model)
@@ -121,12 +117,6 @@ def dryrun_batch(cfg: GlobalConfig, data: int) -> Dict[str, np.ndarray]:
     return synthetic_batch(cfg, max(2 * data, 2))
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank(rank: int, job_path: str) -> None:
     """One rank of the dry run: join the gloo group, take this rank's
     rows of the global batch, one train step; rank 0 prints the line."""
@@ -138,7 +128,7 @@ def _rank(rank: int, job_path: str) -> None:
         job = json.load(f)
     torch.set_num_threads(1)
     init_distributed(torch.device("cpu"), backend="gloo",
-                     init_method=f"tcp://127.0.0.1:{job['port']}",
+                     init_method=job["init_method"],
                      world_size=job["world"], rank=rank)
     try:
         cfg = GlobalConfig.from_json(job["config"])
@@ -158,11 +148,12 @@ def _rank(rank: int, job_path: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def dryrun(n_ranks: int = 8, config: Optional[GlobalConfig] = None
-           ) -> float:
+def dryrun(n_ranks: int = 8, config: Optional[GlobalConfig] = None,
+           timeout_s: float = DRYRUN_TIMEOUT_S) -> float:
     """One training step over ``n_ranks`` gloo ranks on the CPU (module
     docstring); ``config`` defaults to ``dryrun_config()``. Prints rank
-    0's line and returns its loss_total; raises if a rank fails."""
+    0's line and returns its loss_total; raises if a rank fails or the
+    ranks are not done within ``timeout_s``."""
     cfg = config or dryrun_config()
     data, model = mesh_shape(n_ranks)
     env = dict(os.environ)
@@ -173,7 +164,8 @@ def dryrun(n_ranks: int = 8, config: Optional[GlobalConfig] = None
         job_path = os.path.join(tmp, "job.json")
         with open(job_path, "w") as f:
             json.dump(dict(config=cfg.to_json(), mesh=[data, model],
-                           world=n_ranks, port=_free_port()), f)
+                           world=n_ranks, init_method="file://" +
+                           os.path.join(tmp, "rendezvous")), f)
         logs = [(open(os.path.join(tmp, f"{r}.out"), "w+"),
                  open(os.path.join(tmp, f"{r}.err"), "w+"))
                 for r in range(n_ranks)]
@@ -184,7 +176,7 @@ def dryrun(n_ranks: int = 8, config: Optional[GlobalConfig] = None
             for r, (out, err) in enumerate(logs)]
         # a rank that fails leaves the others waiting in a collective:
         # stop them all at the first failure or at the time limit
-        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        deadline = time.monotonic() + timeout_s
         try:
             while any(p.poll() is None for p in procs):
                 if any(p.returncode for p in procs) or \
