@@ -41,8 +41,8 @@ Phases, one JSON line each:
                10x44 and 20x88 with 16x16 ((1,696,4,D), (1,2016,4,D), D =
                18/54/144/378), and q/k/v with a D stride of 2. Each row
                names the kernel the dispatch rule picks (`route`); where
-               that is a resident kernel, the key-tiled one is checked
-               and timed beside it (`key_tiled_*`)
+               both kernels take the shape, the other one is checked and
+               timed beside it (`key_tiled_*` or `resident_*`)
   forward_ego  the flagship config (regnety_032 both branches, 160x704
                RGB, 256x256 LiDAR) at seeded random init, batch 1, bf16:
                16 attention launches per forward, p50/p90 latency; the same
@@ -86,7 +86,9 @@ Phases, one JSON line each:
                756), (c) image anchors 20x88 and LiDAR anchors 16x16 (T =
                2016, upsampling pools, antialiased downsampling resizes):
                bf16 p50/p90 over 20 forwards, 16 attention launches per
-               forward, peak memory; fp32 on the card vs fp32 on the CPU
+               forward, the attention kernels' device time per forward
+               (torch.profiler over 3 more), peak memory; fp32 on the
+               card vs fp32 on the CPU
                (1e-3 m / 1e-4) and bf16 vs fp32 waypoints within 5% of
                their scale
   family_agent HybridAgent for latentTF (frames without a LiDAR entry)
@@ -189,6 +191,7 @@ CUDA card and the rest of the repository beside it.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import math
 import os
@@ -418,10 +421,24 @@ def attention_bound_ms(shape, dtype) -> tuple:
 def attention_inputs(shape, layout, gen, dtype):
     """Seeded q, k, v of a (B, T, H, D) shape in `dtype`: dense, one
     element into a buffer ("offset": bf16 rows then only 2-byte aligned),
-    a (B, H, T, D) tensor permuted ("permuted"), or every other element of
-    a buffer of twice the D ("d_stride")."""
+    a (B, H, T, D) tensor permuted ("permuted"), every other element of
+    a buffer of twice the D ("d_stride"), or "rising": q scaled x30 along
+    one direction u and k_j leaning towards u in proportion to j (the
+    seeded parts x1e-3), so that every row's maximum lies in the last key
+    tile and each key tile raises the running max of the key-tiled
+    kernel's one-pass softmax (as tests/test_torch_attention.py's
+    _rising_qkv)."""
     def randn(*size):
         return torch.randn(size, generator=gen, device="cuda").to(dtype)
+
+    if layout == "rising":
+        b, t, h, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                   for _ in range(3))
+        u = torch.full((d,), d ** -0.5, device="cuda")
+        ramp = torch.arange(t, device="cuda").view(1, t, 1, 1) / t
+        return [x.to(dtype) for x in (30 * (1e-3 * q + u),
+                                      1e-3 * k + ramp * u, v)]
 
     def one():
         if layout == "d_stride":
@@ -537,34 +554,41 @@ def check_attention_refuses_grad(gen):
 def attention_row(q, k, v, **fields) -> dict:
     """Check the kernel against its plain version on q, k, v (raises past
     the tolerance) and time it, the plain version and SDPA. The row names
-    the kernel the dispatch rule picks (`route`); where that is the
-    resident kernel, the key-tiled one is checked and timed beside it
-    (`key_tiled_*`), the measurement the rule rests on."""
+    the kernel the dispatch rule picks (`route`); where both kernels take
+    the shape, the other one is checked and timed beside it (`key_tiled_*`
+    beside the resident kernel, `resident_*` beside the key-tiled one),
+    the measurement the rule rests on."""
     import torch.nn.functional as F
 
     from transfuser_torch.ops.attention import (_attention_key_tiled,
-                                                attention, kernel_route,
+                                                _attention_resident,
+                                                _resident_takes, attention,
+                                                kernel_route,
                                                 reference_attention)
 
     shape, dtype = tuple(q.shape), q.dtype
     route = kernel_route(q, k, v)
+    other = ("key_tiled" if route == "resident" else
+             "resident" if _resident_takes(q, k, v) else None)
+    forced = {"key_tiled": _attention_key_tiled,
+              "resident": _attention_resident}
     want = reference_attention(q, k, v)
     tol = attention_tol(dtype, want)
     errs = {r: float((fn(q, k, v).float() - want.float()).abs().max())
-            for r, fn in (("rule", attention),
-                          ("key_tiled", _attention_key_tiled))
-            if r == "rule" or route == "resident"}
+            for r, fn in [("rule", attention)] +
+            ([(other, forced[other])] if other else [])}
     for r, e in errs.items():
         if not e <= tol:
             raise AssertionError(f"attention {shape} {dtype} {fields} "
                                  f"{r}: max abs err {e} > {tol}")
     got, err = attention(q, k, v), errs["rule"]
     extra = {}
-    if route == "resident":
-        tiled = lambda: _attention_key_tiled(q, k, v)  # noqa: E731
-        extra = dict(key_tiled_max_abs_err=errs["key_tiled"],
-                     key_tiled_ms=cuda_ms(tiled),
-                     key_tiled_device_ms=device_time(tiled)[0])
+    if other:
+        fn = forced[other]
+        run = lambda: fn(q, k, v)  # noqa: E731
+        extra = {f"{other}_max_abs_err": errs[other],
+                 f"{other}_ms": cuda_ms(run),
+                 f"{other}_device_ms": device_time(run)[0]}
     # both fp32 paths against fp64: shows each one's own error
     exact = reference_attention(q.double(), k.double(), v.double())
     err64 = float((got.double() - exact).abs().max())
@@ -1228,7 +1252,8 @@ def config_case(gpt: dict, sensors: dict):
 def phase_config_forward_ego(n=20):
     """The flagship at full width with other GPT head counts and token
     grids (CONFIG_CASES), through the key-tiled attention kernel: bf16
-    p50 over n forwards, 16 attention launches each, fp32 on the card vs
+    p50 over n forwards, 16 attention launches each, the attention
+    kernels' device time per forward, fp32 on the card vs
     fp32 on the CPU (1e-3 m / 1e-4, as the family phase) and bf16 vs
     fp32 waypoints within 5% of their scale (as the flagship phase)."""
     from transfuser_torch.models import LidarCenterNet
@@ -1258,6 +1283,9 @@ def phase_config_forward_ego(n=20):
         if per_forward != {"attention": 16, "scatter_max": 0}:
             raise AssertionError(f"{name}: launches per forward_ego "
                                  f"{per_forward}, expected 16 attention")
+        # the attention kernels' device time in one forward (its 16
+        # launches), beside all of the forward's kernels
+        prof = profile_calls(lambda: model.forward_ego(*args), 3)
         if not (torch.isfinite(wp_bf).all() and
                 torch.isfinite(boxes_bf).all()):
             raise AssertionError(f"{name}: non-finite forward_ego outputs")
@@ -1294,6 +1322,9 @@ def phase_config_forward_ego(n=20):
                             gpt_cfg.lidar_horz_anchors],
              img_resolution=list(cfg.sensors.img_resolution),
              launches_per_forward=per_forward, forwards=n,
+             attention_device_ms_per_forward=prof[
+                 "attention_device_ms_per_call"],
+             device_kernel_ms_per_forward=prof["device_kernel_ms_per_call"],
              bf16_p50_ms=float(np.percentile(times, 50)),
              bf16_p90_ms=float(np.percentile(times, 90)),
              peak_memory_gb=peak_gb, cpu_fp32_s=cpu_s,
@@ -2765,6 +2796,11 @@ def main() -> int:
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 2
+    if importlib.util.find_spec("transfuser_torch") is None:
+        print("chip_smoke: the transfuser_torch package is not beside this "
+              "script; run it from a checkout of the repository",
               file=sys.stderr)
         return 2
     from transfuser_torch.config import GlobalConfig

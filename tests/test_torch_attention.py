@@ -1,7 +1,8 @@
 """The port's attention vs the Pallas TPU kernel (interpret mode on the CPU)
-and the JAX einsum reference, in fp32; and the kernel's tensor-core
+and the JAX einsum reference, in fp32; and the kernels' tensor-core
 arithmetic, emulated in plain torch, vs the plain version: bf16 operands
-with a split P, and fp32 as split TF32. The CUDA kernel itself is held to
+with a split P, fp32 as split TF32, and the key-tiled kernel's one-pass
+softmax over its key groups. The CUDA kernel itself is held to
 its plain version on a card in tests/test_torch_kernels_cuda.py and in
 chip_smoke.py's kernels phase."""
 
@@ -194,65 +195,185 @@ def test_single_tf32_loses_what_the_split_keeps(shape):
     assert single > 16 * split
 
 
-KEY_TILE, KEY_TILED_CHUNK = 64, 64  # csrc/attention.cu kKeyTile, kKtChunk
+# csrc/attention.cu: keys per tile of the key-tiled kernel (kKtKeys), by
+# dtype, and a Q / K column chunk width it may take (the host picks a
+# multiple of the MMA's k step; the width changes only the order of the
+# fp32 sums of the chunks' logits)
+KEY_TILE = {torch.float32: 32, torch.bfloat16: 64}
+KEY_TILED_CHUNK = 64
 
 
-def _key_tiled_emulation(q, k, v):
-    """The key-tiled fp32 kernel's arithmetic (csrc/attention.cu,
-    attention_kt) in plain torch: D zero-padded to a multiple of 8; the
-    logits of each 64-column chunk of D as split-TF32 products, added over
-    the chunks in fp32; pass 1 takes each 64-key tile's row max and sum
-    of exp and merges them into running statistics tile by tile (the
-    kernel merges per lane, then across the quad and the warps: the same
-    operations in another order); pass 2 forms P = exp(s - m) / l in
-    fp32 and adds each tile's P.V, split-TF32 products, in fp32."""
+def _key_groups(shape, dtype, sms=132):
+    """The key groups csrc/attention.cu's launch_kt gives a shape on a card
+    of `sms` SMs (where their stages fit in shared memory, as at every
+    shape here): column chunks of at most 24 8-column tiles, more while
+    the grid leaves a tenth of the SMs idle; then as many groups as a
+    warp's registers allow for its tiles (kt_max_groups) and the key tiles
+    fill."""
+    b, t, h, d = shape
+    tiles, base = -(-d // 8), b * h * -(-t // 64)
+    n_chunks = max(-(-tiles // 24), min(-(-(sms * 9 // 10) // base), tiles))
+    per_chunk = -(-tiles // n_chunks)
+    n_tiles = next(n for n in (2, 4, 8, 16, 24) if n >= per_chunk)
+    small = 2 if dtype == torch.float32 else 4
+    groups = 4 if n_tiles <= small else 3 if n_tiles <= 8 else 2
+    return min(groups, -(-t // KEY_TILE[dtype]))
+
+
+def _tf32_truncated(x):
+    """x as the tensor core reads an fp32 operand of a TF32 product: its
+    top 19 bits, the 13 low mantissa bits dropped (toward zero)."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _key_tiled_emulation(q, k, v, chunk=KEY_TILED_CHUNK, groups=1):
+    """The key-tiled kernel's arithmetic (csrc/attention.cu,
+    attention_kt) in plain torch, in fp32 before the final cast: D
+    zero-padded to the MMA's k step (8 fp32, 16 bf16); key tiles of
+    KEY_TILE keys dealt to `groups` key groups (tile j to group j mod
+    groups), each group one pass over its tiles with a running row max m
+    and sum l in log2 units. Per tile: the logits over the Q / K column
+    chunks (split-TF32 products for fp32, each operand x as big =
+    tf32(x), rounded, and small = x - big, which the tensor core
+    truncates; added over the chunks in fp32; bf16 operands, whose
+    products fp32 holds exactly), times scale *
+    log2(e); m' = max(m, the tile's row max), alpha = 2^(m - m'), p = 2^(s
+    - m'), l = l alpha + sum p, and out = out alpha + p.V (fp32:
+    split-TF32 products, the tile's sum added into fp32 out; bf16: p as
+    bf16 hi + lo, lo.V then hi.V). Then the groups merge in order (m =
+    max, each side scaled by 2^(m_side - m)) and out / l. Keys past T are
+    in no tile (the kernel masks them: 2^-inf = 0). A group's first tile
+    has a key, so m' is finite from it on and alpha never meets -inf -
+    (-inf); a group with no tile weighs 2^-inf = 0 in the merge."""
+    bf16 = q.dtype == torch.bfloat16
     b, t, h, d = q.shape
-    dp = -(-d // 8) * 8
+    step = 16 if bf16 else 8
+    dp = -(-d // step) * step
 
     def heads(x):  # (B, T, H, D) -> (B, H, T, dp) fp32
         return F.pad(x.permute(0, 2, 1, 3).float(), (0, dp - d))
 
     def product(x, y):
+        if bf16:
+            return x @ y
         xb, yb = _tf32(x), _tf32(y)
-        return xb @ yb + (xb @ _tf32(y - yb) + _tf32(x - xb) @ yb)
+        return xb @ yb + (xb @ _tf32_truncated(y - yb) +
+                          _tf32_truncated(x - xb) @ yb)
 
     qp, kp, vp = heads(q), heads(k), heads(v)
-    logits = None
-    for c in range(0, dp, KEY_TILED_CHUNK):
-        part = product(qp[..., c:c + KEY_TILED_CHUNK],
-                       kp[..., c:c + KEY_TILED_CHUNK].transpose(-1, -2))
-        logits = part if logits is None else logits + part
-    logits = logits * (1.0 / math.sqrt(d))
-    tiles = range(0, t, KEY_TILE)
-    m = torch.full(logits.shape[:-1] + (1,), float("-inf"))
-    l = torch.zeros_like(m)
-    for j in tiles:
-        s = logits[..., j:j + KEY_TILE]
-        m_t = s.amax(-1, keepdim=True)
-        l_t = torch.exp(s - m_t).sum(-1, keepdim=True)
-        m_new = torch.maximum(m, m_t)
-        l = l * torch.exp(m - m_new) + l_t * torch.exp(m_t - m_new)
-        m = m_new
-    out = torch.zeros_like(qp)
-    for j in tiles:
-        p = torch.exp(logits[..., j:j + KEY_TILE] - m) / l
-        out = out + product(p, vp[..., j:j + KEY_TILE, :])
-    return out[..., :d].permute(0, 2, 1, 3)
+    sl2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * \
+        torch.tensor(math.log2(math.e), dtype=torch.float32)
+    tile = KEY_TILE[q.dtype]
+    sides = []
+    for grp in range(groups):
+        m = torch.full(qp.shape[:-1] + (1,), float("-inf"))
+        l = torch.zeros_like(m)
+        out = torch.zeros_like(qp)
+        for j in range(grp * tile, t, groups * tile):
+            keys = slice(j, j + tile)
+            s = None
+            for c in range(0, dp, chunk):
+                part = product(qp[..., c:c + chunk],
+                               kp[..., keys, c:c + chunk].transpose(-1, -2))
+                s = part if s is None else s + part
+            s = s * sl2
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            if bf16:
+                hi = p.to(torch.bfloat16).float()
+                lo = (p - hi).to(torch.bfloat16).float()
+                out = (out * alpha + lo @ vp[..., keys, :] +
+                       hi @ vp[..., keys, :])
+            else:
+                out = out * alpha + product(p, vp[..., keys, :])
+            m = m_new
+        sides.append((m, l, out))
+    m, l, out = sides[0]
+    for mo, lo_, oo in sides[1:]:
+        m_new = torch.maximum(m, mo)
+        a, w = torch.exp2(m - m_new), torch.exp2(mo - m_new)
+        l, out, m = l * a + lo_ * w, out * a + oo * w, m_new
+    return (out / l)[..., :d].permute(0, 2, 1, 3)
+
+
+def _rising_qkv(shape, seed, dtype=torch.float32):
+    """Seeded q, k, v whose logits rise with the key index: q is scaled
+    x30 along one direction u, and k_j leans towards u in proportion to j
+    (the seeded parts scaled by 1e-3), so every row's maximum lies in the
+    last key tile and each tile raises the running max: every rescale
+    step is taken. The logits stay within 30 / sqrt(D) of 0, where fp32
+    itself keeps them to about 1e-6."""
+    b, t, h, d = shape
+    q, k, v = (torch.from_numpy(a) for a in _qkv(shape, seed))
+    u = F.normalize(torch.ones(d), dim=0)
+    ramp = torch.arange(t, dtype=torch.float32).view(1, t, 1, 1) / t
+    q = 30 * (1e-3 * q + u)
+    k = 1e-3 * k + ramp * u
+    return [x.to(dtype) for x in (q, k, v)]
+
+
+def _within_tolerance(got, q, k, v):
+    """chip_smoke.py's tolerance: fp32 1e-5 against the plain version and
+    against fp64; bf16 one bf16 ulp at the output's largest magnitude
+    against the plain version."""
+    want = reference_attention(q, k, v).float()
+    assert torch.isfinite(got).all()
+    if q.dtype == torch.bfloat16:
+        err = float((got.to(torch.bfloat16).float() - want).abs().max())
+        assert err <= float(want.abs().max()) * 2.0 ** -7
+        return
+    assert float((got - want).abs().max()) <= 1e-5
+    exact = reference_attention(q.double(), k.double(), v.double())
+    assert float((got.double() - exact).abs().max()) <= 1e-5
 
 
 @pytest.mark.parametrize("shape", [(1, 2016, 4, 378), (1, 174, 1, 1512)],
                          ids=str)
 def test_key_tiled_arithmetic_within_fp32_tolerance(shape):
-    """The key-tiled kernel's two-pass algorithm meets the fp32
-    tolerance (1e-5) against the plain version and against fp64 at the
-    longest token grid (anchors 20x88 + 16x16) and the widest head (one
-    head of RegNetY-032's 1512 channels)."""
+    """The key-tiled kernel's one-pass algorithm (running max and sum,
+    rescaled per key tile) meets the fp32 tolerance (1e-5) against the
+    plain version and against fp64 at the longest token grid (anchors
+    20x88 + 16x16) and the widest head (one head of RegNetY-032's 1512
+    channels)."""
     q, k, v = _fp32(shape, seed=sum(shape) + 4)
-    emulated = _key_tiled_emulation(q, k, v)
-    assert float((emulated - reference_attention(q, k, v))
-                 .abs().max()) <= 1e-5
-    exact = reference_attention(q.double(), k.double(), v.double())
-    assert float((emulated.double() - exact).abs().max()) <= 1e-5
+    groups = _key_groups(shape, q.dtype)
+    _within_tolerance(_key_tiled_emulation(q, k, v, groups=groups), q, k, v)
+
+
+@pytest.mark.parametrize("shape", [(1, 2016, 4, 378), (1, 174, 8, 189)],
+                         ids=str)
+def test_key_tiled_arithmetic_within_one_bf16_ulp(shape):
+    """bf16: P as bf16 hi + lo through P.V keeps the one-pass kernel
+    within one bf16 ulp of the plain version, at the longest token grid
+    and at an odd D (8 heads)."""
+    q, k, v = _bf16(shape, seed=sum(shape) + 5)
+    groups = _key_groups(shape, q.dtype)
+    _within_tolerance(_key_tiled_emulation(q, k, v, groups=groups), q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_key_tiled_rescaling_with_maxima_in_the_last_tile(dtype):
+    """q x30 and logits that rise with the key index: every row's maximum
+    lies in the last key tile, so each tile rescales the sums before it;
+    still within the tolerance."""
+    shape = (1, 2016, 2, 54)
+    q, k, v = _rising_qkv(shape, seed=6, dtype=dtype)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float())
+    assert bool((s.argmax(-1) >= 2016 - KEY_TILE[dtype]).all())
+    groups = _key_groups(shape, dtype)
+    _within_tolerance(_key_tiled_emulation(q, k, v, groups=groups), q, k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("t", [1, 17])
+def test_key_tiled_short_rows_stay_finite(t, dtype):
+    """T = 1 and 17: one key tile, mostly masked keys; the running
+    statistics start from m = -inf and l = 0 without a NaN."""
+    q, k, v = (x.to(dtype) for x in _fp32((1, t, 4, 64), seed=t))
+    assert _key_groups(q.shape, dtype) == 1
+    _within_tolerance(_key_tiled_emulation(q, k, v, groups=1), q, k, v)
 
 
 def test_ablation_variants_still_match_the_kernel_source():
@@ -374,6 +495,14 @@ def test_bf16_rows_of_two_head_shards_are_readable(d):
 
 if __name__ == "__main__":
     # the emulated errors quoted in csrc/attention.cu's header
+    for shape in [(1, 2016, 4, 378), (1, 174, 1, 1512)]:
+        q, k, v = _fp32(shape, seed=sum(shape) + 4)
+        tiled = _key_tiled_emulation(q, k, v,
+                                     groups=_key_groups(shape, q.dtype))
+        exact = reference_attention(q.double(), k.double(), v.double())
+        plain = float((tiled - reference_attention(q, k, v)).abs().max())
+        print(f"key-tiled {shape}: vs plain {plain:.2e}, vs fp64 "
+              f"{float((tiled.double() - exact).abs().max()):.2e}")
     for d in (16, 18, 54, 144, 256, 378, 512):
         shape = (1, 174, 4, d)
         q, k, v = _fp32(shape, seed=sum(shape) + 2)

@@ -20,7 +20,9 @@ from chip_smoke import (ATTN_CONFIG_SHAPES, ATTN_F32_EDGE_CASES,
                         attention_inputs, attention_tol)
 from transfuser_torch.ops import kernels
 from transfuser_torch.ops import pillars as tp
-from transfuser_torch.ops.attention import (_attention_key_tiled, attention,
+from transfuser_torch.ops.attention import (_attention_key_tiled,
+                                            _attention_resident,
+                                            _resident_takes, attention,
                                             copies, kernel_route,
                                             reference_attention)
 
@@ -115,6 +117,7 @@ def _check_launch(q, k, v, fn=attention):
     torch.cuda.synchronize()
     assert kernels.launches["attention"] == before + 1
     want = reference_attention(q, k, v)
+    assert bool(torch.isfinite(got).all()), (q.shape, q.dtype, fn)
     err = float((got.float() - want.float()).abs().max())
     assert err <= attention_tol(q.dtype, want), (q.shape, q.dtype, fn)
 
@@ -139,21 +142,66 @@ def test_attention_key_tiled_kernel_at_other_heads_and_grids_on_card(
     _check_launch(q, k, v, _attention_key_tiled)
 
 
+# the key-tiled kernel forced at the ragged edges of its tiles (64 query
+# rows a block, 32 or 64 keys a tile, D in k steps of 8 or 16, column
+# chunks), the layouts it reads in place or after the wrapper's copy, and
+# inputs whose row maxima lie in the last key tile (every rescale step of
+# its one-pass softmax taken): (what, shape, layout)
+KT_EDGE_CASES = [
+    ("T=1", (1, 1, 4, 64), "dense"),
+    ("T=17", (1, 17, 4, 64), "dense"),
+    ("T=63", (1, 63, 4, 64), "dense"),
+    ("T=65", (1, 65, 4, 64), "dense"),
+    ("T=1025", (1, 1025, 2, 64), "dense"),
+    ("T=2016", (1, 2016, 4, 54), "dense"),
+    ("D=1", (1, 174, 4, 1), "dense"),
+    ("D=9", (1, 174, 8, 9), "dense"),
+    ("D=17", (1, 174, 4, 17), "dense"),
+    ("D=513", (1, 174, 1, 513), "dense"),
+    ("D=1512", (1, 174, 1, 1512), "dense"),
+    ("batch 3", (3, 174, 4, 54), "dense"),
+    ("one element into a buffer", (1, 174, 4, 54), "offset"),
+    ("one element into a buffer, odd D", (2, 17, 3, 17), "offset"),
+    ("odd D at odd head offsets, shifted", (1, 174, 8, 27), "offset"),
+    ("(B, H, T, D) permuted to (B, T, H, D)", (1, 174, 4, 54), "permuted"),
+    ("D stride 2", (1, 174, 4, 54), "d_stride"),
+    ("maxima in the last key tile", (1, 2016, 4, 54), "rising"),
+    ("maxima in the last key tile, D=378", (1, 696, 4, 378), "rising"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", KT_EDGE_CASES, ids=lambda c: c[0])
+def test_attention_key_tiled_kernel_edges_on_card(case, dtype):
+    """The key-tiled kernel, forced, at its tiles' ragged edges, in every
+    layout and with every rescale step taken: one launch, within
+    chip_smoke.py's tolerance of the plain version, no NaN."""
+    _needs_card()
+    _, shape, layout = case
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    q, k, v = attention_inputs(shape, layout, gen, dtype)
+    _check_launch(q, k, v, _attention_key_tiled)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_attention_routes_on_card(dtype):
     """The main path keeps the resident kernels, the key-tiled kernel
     takes the same shapes within the tolerance when forced, and asking
-    the rule copies nothing. 2-head shards (row stride 2D, rows the
-    resident bf16 kernel cannot read) are padded where the rule then picks
-    the resident kernel (T = 174) and read in place by the key-tiled one
-    where K would not fit in shared memory (T = 696)."""
+    the rule copies nothing. Above T = 384 the rule picks the key-tiled
+    kernel where the resident ones take the shape too, which then
+    still meet the tolerance when forced. 2-head shards (row stride 2D,
+    rows the resident bf16 kernel cannot read) are padded where the
+    resident kernel runs (T = 174, and forced at T = 696) and read in
+    place by the key-tiled one (T = 696)."""
     _needs_card()
     for shape in ATTN_MAIN_SHAPES:
         q, k, v = [torch.from_numpy(a).to("cuda", dtype)
                    for a in _qkv(shape, seed=sum(shape))]
         before = dict(copies)
         assert kernel_route(q, k, v) == "resident"
+        assert _resident_takes(q, k, v)
         assert copies == before
         _check_launch(q, k, v)
         _check_launch(q, k, v, _attention_key_tiled)
@@ -161,13 +209,19 @@ def test_attention_routes_on_card(dtype):
     for t in (174, 696):
         qkv = torch.randn(1, t, 3, 2, 378, device="cuda").to(dtype)
         q, k, v = qkv.unbind(2)
-        route = "key_tiled" if bf16 and t == 696 else "resident"
+        route = "key_tiled" if t == 696 else "resident"
         before = dict(copies)
         assert kernel_route(q, k, v) == route
+        assert _resident_takes(q, k, v) == (not bf16 or t == 174)
         assert copies == before
         _check_launch(q, k, v)
         padded = bf16 and route == "resident"
         assert copies["bf16_rows"] - before["bf16_rows"] == 3 * padded
+    q, k, v = [torch.from_numpy(a).to("cuda", dtype)
+               for a in _qkv((1, 696, 4, 54), seed=7)]
+    assert kernel_route(q, k, v) == "key_tiled" and _resident_takes(q, k, v)
+    _check_launch(q, k, v)
+    _check_launch(q, k, v, _attention_resident)
 
 
 @pytest.mark.cuda

@@ -3,9 +3,11 @@
 // Replaces the Pallas TPU kernel transfuser_tpu/ops/attention.py
 // (`_attn_kernel`, launched by `pallas_attention`). Same arithmetic: fp32
 // logits q.k * (1/sqrt(D)), an exact two-pass softmax over the whole
-// resident logit row (row max, exp, divide by the row sum), fp32 P.V, one
-// cast to the input dtype at the store. q/k/v/o are read and written in
-// place through their (B, T, H, D) strides: no transpose copies.
+// resident logit row (row max, exp, divide by the row sum; the key-tiled
+// kernel takes one pass with a running max and sum, the same function up
+// to rounding), fp32 P.V, one cast to the input dtype at the store.
+// q/k/v/o are read and written in place through their (B, T, H, D)
+// strides: no transpose copies.
 //
 // Why the TPU design does not carry over: the Pallas kernel holds a whole
 // (T, D) q/k/v block per (batch, head) program in VMEM, one program per
@@ -22,19 +24,39 @@
 //
 // Three kernels, chosen by a rule on the shape, dtype and layout (an
 // explicit dispatch, not a retry; `tf_attention_route` below):
-//   - the resident kernels, for T <= 1024 and D <= 512: fp32 always, bf16
+//   - the resident kernels take T <= 1024 and D <= 512: fp32 always, bf16
 //     where D is even, the rows are 16-byte aligned (see the wrapper's
 //     `_bf16_rows`) and the head's whole K fits in shared memory (T = 174
 //     at any D up to 512);
-//   - the key-tiled kernel for every other shape, in either dtype.
-// The rule keeps the main path, the other trunks' and the tensor-parallel
-// shapes on the resident kernels: at every shape both take, they ran
-// 1.7-6.5x faster than the key-tiled one (run BF of chip_smoke.py, NVIDIA
-// H100 80GB HBM3 at 700 W, device time: bf16 (1,174,4,378) 0.0130
-// against 0.0849 ms, fp32 0.0356 against 0.1150), fp32 at T = 1024 too:
-// (1,1024,4,64) 0.1027 against 0.1738 ms, (1,1024,2,512) 0.4115 against
-// 1.8834.
-//
+//   - the key-tiled kernel takes every shape, in either dtype.
+// Where both take a shape, the rule picks the one that ran faster in run
+// BT of chip_smoke.py (NVIDIA H100 80GB HBM3 at 700 W, profiler device
+// time, both kernels timed at each of the 65 rows of shapes and layouts
+// both take):
+//   - the resident kernels at T <= 384: faster at 49 of the 57 such rows,
+//     the main path's included (bf16 (1,174,4,D), D = 18 / 54 / 144 /
+//     378: 0.0061 / 0.0070 / 0.0079 / 0.0133 ms against 0.0066 / 0.0074
+//     / 0.0094 / 0.0180; fp32 0.0072 / 0.0095 / 0.0161 / 0.0359 against
+//     0.0098 / 0.0122 / 0.0198 / 0.0467), except
+//   - fp32 at D >= 144 over 8 or more (batch, head) pairs: the key-tiled
+//     kernel, faster at (4,174,2,144) 0.0204 against 0.0265 ms,
+//     (4,174,2,378) 0.0562 against 0.0826 and (1,174,8,189) 0.0294
+//     against 0.0347 (the resident fp32 kernel runs its 132 blocks at
+//     one 16-row tile and one column chunk each);
+//   - the key-tiled kernel above T = 384, but for fp32 at D > 384:
+//     faster at all 7 such rows, bf16 (1,696,4,18) 0.0147 against 0.0251
+//     ms, (1,696,4,54) 0.0201 against 0.0472; fp32 (1,696,4,D), D = 18 /
+//     54 / 144 / 378, 0.0250 / 0.0388 / 0.0709 / 0.2120 against 0.0350 /
+//     0.0689 / 0.1902 / 0.4528; (1,1024,4,64) 0.0587 against 0.1014; the
+//     resident fp32 kernel at (1,1024,2,512), 0.3955 against 0.4001.
+// Of the 8 rows at T <= 384 where the key-tiled kernel ran faster, 6
+// were within 9% (bf16 (2,174,4,18), (1,174,8,72), (4,174,2,144) and
+// (4,174,2,378); fp32 (1,17,4,64) and (1,174,8,72)); the other 2 are the
+// bf16 tensor-parallel shards (4,174,2,18) and (4,174,2,54), 0.0072 and
+// 0.0088 against 0.0131 and 0.0147 ms, where the resident kernel's time
+// includes the three copies into padded rows. No plain rule on the
+// shape separates these from their neighbours, so they stay resident.
+
 // bf16 (the main path), `attention_tc_bf16`: tensor cores.
 //   - Grid (B*H, ceil(T/16), n_chunks): a block owns 16 query rows of one
 //     (batch, head) and one chunk of output columns. The chunk width is
@@ -126,31 +148,64 @@
 //     tools/attention_ablation.py shows to take most of the time; the
 //     logits' MMAs come second.
 //
-// Key-tiled (any T, any D, either dtype, any alignment), `attention_kt`:
-//   - Grid and arithmetic as above: 16 query rows and at most 128 output
-//     columns a block; bf16 MMAs with P as bf16 hi + lo, or split TF32.
-//   - K and V stream through shared memory in tiles of 64 keys (one 8-key
-//     MMA tile a warp), Q and K in chunks of 64 columns, each copy landing
-//     during the previous stage's MMAs (cp.async, one stage ahead), so
-//     neither T nor D sets a register or shared-memory size.
-//   - Two passes over the key tiles, as the Pallas kernel's exact softmax:
-//     the row max and sum first (running per lane, merged across the quad
-//     and the warps once), then the logits again, P = exp(s - m) / l in
-//     fp32 and P.V. Each chunk's logits and each tile's P.V leave the
-//     tensor cores' accumulators into fp32 sums: over a long D or T the
-//     accumulators' own sums lose low bits (fp32 (1,174,1,1512): 9.66e-6
-//     against the plain version before, 1.01e-6 after, runs BE / BF).
+// Key-tiled (any T, any D, either dtype, any alignment), `attention_kt`,
+// FlashAttention-2's structure on mma.sync:
+//   - Grid (B*H, ceil(T/64), column chunks): a block owns 64 query rows of
+//     one (batch, head) and one chunk of output columns; warp w of a key
+//     group owns 16 rows and keeps in registers, for a key tile (64 keys
+//     bf16, 32 fp32), its logits, P, the running row max and sum (in log2
+//     units) and its output columns. The row statistics reduce across the
+//     quad's lanes only (shuffles): no barrier, no shared memory.
+//   - One pass over the key tiles: m' = max(m, the tile's max), the sums
+//     and the output rescaled by 2^(m - m'), P = 2^(s - m'), out / l once
+//     at the end; the same function as the Pallas kernel's exact two-pass
+//     softmax, up to rounding (emulated on the CPU:
+//     tests/test_torch_attention.py `_key_tiled_emulation`, fp32 within
+//     4.5e-7 of the plain version at (1,2016,4,378), 1.0e-6 at
+//     (1,174,1,1512)). A tile always holds a key below T, so the first
+//     rescale is 2^-inf = 0, never 2^(-inf - -inf).
+//   - P.V straight from the logits' registers: bf16 P as hi + lo pairs
+//     (the m16n8 C layout of two 8-key tiles is the m16n8k16 A layout),
+//     fp32 P split for TF32 with the A fragment's keys permuted within
+//     each 8-key step to match the C layout, V's rows read in that order.
+//     fp32 products leave the accumulators into fp32 sums once a stage
+//     (logits) or a tile (P.V); split TF32 here rounds big and leaves
+//     small for the tensor core to truncate (split_kt).
+//   - 2-4 key groups of 4 warps a block (as many as the warps' registers
+//     allow: 4 up to 4 bf16 / 2 fp32 output tiles a warp, 3 up to 8, else
+//     2) take key tiles in turn and merge their (m, l, out) in group order
+//     at the end: the 64-row grid of a long T has only B*H*T/64 blocks
+//     (128 at (1,2016,4,D)), so the groups supply the warps, and each
+//     group's serial chain is 1/groups of the keys.
+//   - Q resident in shared memory (or streamed beside K where it does not
+//     fit), K streamed in stages of D columns (all of D where they fit,
+//     one barrier a key tile) through a 2-3 slot cp.async ring, V in
+//     buffers of its own issued a stage or more before its use; copy
+//     plans computed once a block (no division in the stage loop).
+//   - Output columns a block: at most 24 8-column tiles a warp (192), more
+//     chunks while the grid leaves a tenth of the SMs idle; each chunk
+//     computes the logits again. At (1,174,1,1512) that is 38 chunks of
+//     40 columns over 3 row blocks (114 blocks), each computing the 64 x
+//     174 logits over all 1512 columns: 38x the logits' work of one
+//     block, which the grid runs side by side.
 //   - Copies of 16, 8, 4 or 2 bytes, the widest every row start allows:
 //     bf16 head slices of odd D start at odd elements, read as 16-bit
 //     pairs; 2-byte rows, which cp.async cannot copy, are plain loads.
-//   - What bounds it: every 16-row block reads its head's whole K twice
-//     and its V chunk from L2, 6.6 GB at (1,2016,4,378) bf16, which runs
-//     in 5.71 ms against SDPA's 0.85 (run BF): larger query tiles per
-//     block (P kept in registers) or wgmma are the levers.
-//
-// Limits: the grid's (B*H < 2^31, ceil(T/16) and the column chunks at
-// most 65535 each) and 32-bit element offsets within a row's span (T and
-// D below 2^31); strides are 64-bit. The D stride must be 1 (the wrapper
+//   - Measured (run BT, device ms at (1,2016,4,D), D = 18 / 54 / 144 /
+//     378): bf16 0.0429 / 0.0700 (CUDA events; the profiler under-read)
+//     / 0.1598 / 0.5106 against SDPA's 0.0326 / 0.0422 / 0.0426 /
+//     0.8242; fp32 0.0765 / 0.1368 / 0.3622 / 1.3524 against 0.2829 /
+//     0.3173 / 0.3718 / 0.7460. Where the time goes at D = 378
+//     (tools/attention_ablation.py, BT): bf16 0.52 ms, of which P.V's
+//     MMAs (hi and lo) 0.18, the logits' 0.08, the K / V copies 0.17;
+//     fp32 1.38 ms, of which the logits' split-TF32 MMAs 0.53 (over two
+//     column chunks of 192), P.V's 0.43, the copies 0.34. ptxas: no
+//     spill but 16 bytes at fp32 with 24 output tiles and 4 at 8.
+
+// Limits: the grid's (B*H < 2^31, ceil(T/16) (resident) or ceil(T/64)
+// (key-tiled) and the column chunks at most 65535 each) and 32-bit
+// element offsets within a row's span (T and D below 2^31); strides are
+// 64-bit. The D stride must be 1 (the wrapper
 // copies a tensor whose D stride is not). A launch that fails returns its
 // error, and the wrapper raises.
 
@@ -169,6 +224,10 @@ constexpr int kQTile = 16;  // query rows per block
 // takes every shape outside it
 constexpr int kResidentMaxD = 512;
 constexpr int kResidentMaxT = 1024;
+// the dispatch rule's boundaries (header): above this T the key-tiled
+// kernel takes what the resident ones would, in fp32 up to this D
+constexpr int kKtMinT = 384;
+constexpr int kKtMaxF32D = 384;
 constexpr int kMaxDevices = 64;
 constexpr int kSmemMax = 232448;  // a Hopper block's dynamic shared memory
 
@@ -938,95 +997,235 @@ __global__ void __launch_bounds__(kTcThreads)
 
 // ----------------------------------------------------- key-tiled (any T, D)
 
-// The key-tiled path streams K and V through shared memory in tiles of
-// kKeyTile keys, so nothing in it grows with T, and Q and K in chunks of
-// kKtChunk columns, so nothing grows with D; each block's output columns
-// stay at most kKtMaxCols wide (more column chunks on the grid instead).
-constexpr int kKeyTile = 64;    // keys per tile: one 8-key MMA tile a warp
-constexpr int kKtChunk = 64;    // Q / K columns per streamed chunk
-constexpr int kKtMaxCols = 128; // output columns per block at most
-constexpr int kKtTasks = kKtMaxCols / 8 / kTcWarps;  // P.V tasks a warp
+// Keys a tile and the MMA's k step, by input type: fp32 takes 32-key tiles,
+// so that a warp's split-TF32 logits (two accumulators), their fp32 sums,
+// P.V's products and the output sums fit in its registers together.
+template <typename T>
+struct KtKeys;
+template <>
+struct KtKeys<float> {
+  static constexpr int kKeys = 32;
+  static constexpr int kStep = 8;
+};
+template <>
+struct KtKeys<__nv_bfloat16> {
+  static constexpr int kKeys = 64;
+  static constexpr int kStep = 16;
+};
+constexpr int kKtWarps = 4;             // warps a key group, 16 rows each
+constexpr int kKtRows = 16 * kKtWarps;  // query rows a block
+constexpr int kKtThreads = 32 * kKtWarps;
 
-// Padded sizes, pitches and copy widths of one key-tiled launch, in
-// elements of the input type (P's pitch in P's own: fp32, or bf16 hi and
-// lo). Pitches as in the two kernels above: fragment loads free of bank
-// conflicts, 16-byte copies landing aligned.
+// Key groups a block of kN output tiles a warp may have, as many as its
+// registers allow: 4 (512 threads, at most 128 registers a thread: bf16 up
+// to 4 tiles, fp32 up to 2), 3 (384 threads, 168: up to 8), else 2.
+template <typename T>
+__host__ __device__ constexpr int kt_max_groups(int n_tiles) {
+  return n_tiles <= (std::is_same<T, float>::value ? 2 : 4) ? 4
+         : n_tiles <= 8                                     ? 3
+                                                            : 2;
+}
+
+// Padded sizes, pitches, copy widths and the ring of one key-tiled launch,
+// in elements of the input type. Pitches keep the fragment loads free of
+// bank conflicts (Q and K: 4 mod 8 words; V: rows 2 apart in distinct
+// banks) and 16-byte copies aligned.
 struct KtShape {
-  int d_pad;       // D padded to the MMA's k step (8 fp32, 16 bf16)
-  int kc;          // Q / K columns per chunk: min(kKtChunk, d_pad)
-  int d_chunk;     // output columns per block, a multiple of 8
-  int k_groups;    // warps that share one 8-column output tile
-  int ldc;         // chunk buffer pitch
-  int ldv;         // V tile pitch
-  int ldp;         // P pitch
+  int d_pad;    // D padded to the MMA's k step
+  int kc;       // Q / K columns a stage, a multiple of the k step
+  int n_kc;     // stages a key tile: ceil(d_pad / kc)
+  int d_chunk;  // output columns a block, a multiple of 8
+  int groups;   // key groups: 1 to 4 (group g takes the key tiles g, g +
+                // groups, ...)
+  int q_res;    // 1: the block's Q rows stay in shared memory, all of D;
+                // 0: each stage brings its Q columns beside K's
+  int ldq;      // Q pitch: d_pad + pad (resident) or kc + pad
+  int ldc;      // K chunk pitch: kc + pad
+  int ldv;      // V tile pitch
+  int n_slots;  // stages in the Q / K ring: 2 or 3
+  int slot;     // elements a ring slot: Q chunk (streamed), then each
+                // group's K chunk
+  int n_vbuf;   // V buffers, each holding every group's V tiles: 1 to 3
+  int i_v;      // the stage of a key tile whose group brings its V tiles
   int wq, wk, wv;  // copy width of q, k and v in elements
 };
 
+// Floats a thread of groups 1-3 hands group 0 at the end: m, l of its two
+// rows and its kN output tiles.
+__host__ __device__ constexpr int kt_merge_floats(int n_tiles) {
+  return 4 + 4 * n_tiles;
+}
+
 template <typename T>
-__host__ __device__ __forceinline__ size_t smem_bytes_kt(const KtShape& s) {
-  // two Q + K chunk buffers, one V tile, P (4 bytes an entry either way),
-  // the row statistics of every warp and the P.V partial sums
-  return sizeof(T) * (2 * (size_t)(kQTile + kKeyTile) * s.ldc +
-                      (size_t)kKeyTile * s.ldv) +
-         4 * ((size_t)kQTile * s.ldp + 2 * kTcWarps * kQTile +
-              kQTile * kRedCols);
+__host__ __device__ __forceinline__ size_t smem_bytes_kt(const KtShape& s,
+                                                         int n_tiles) {
+  const size_t ring =
+      sizeof(T) * ((size_t)(s.q_res ? kKtRows * s.ldq : 0) +
+                   (size_t)s.n_slots * s.slot +
+                   (size_t)s.n_vbuf * s.groups * KtKeys<T>::kKeys * s.ldv);
+  const size_t merge = 4 * (size_t)(s.groups - 1) * kKtThreads *
+                       kt_merge_floats(n_tiles);
+  return ring > merge ? ring : merge;
 }
 
-// Two neighbouring bf16 values as one 32-bit MMA operand, read as two
-// 16-bit loads: a head slice of odd D may start at an odd element.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-  return (uint32_t)u[0] | ((uint32_t)u[1] << 16);
+// Which copies of a staged tile a thread makes: its first (row, copy) and
+// the step to its next, for rows of `width` columns starting `e0`
+// elements into their w-aligned span. Computed once a block, so that
+// staging divides nothing.
+struct CopyPlan {
+  int per_row, r, c, dr, dc;
+};
+
+__device__ __forceinline__ CopyPlan copy_plan(int e0, int width, int w) {
+  CopyPlan p;
+  p.per_row = (e0 + width + w - 1) / w;
+  p.dr = blockDim.x / p.per_row;
+  p.dc = blockDim.x - p.dr * p.per_row;
+  p.r = threadIdx.x / p.per_row;
+  p.c = threadIdx.x - p.r * p.per_row;
+  return p;
 }
 
-// (m, l) := the running max and sum of exp(x - m) over both sides' keys;
-// a side with no key yet has m = -inf and l = 0.
-__device__ __forceinline__ void merge_stats(float& m, float& l, float mo,
-                                            float lo) {
-  const float mn = fmaxf(m, mo);
-  if (mn == -INFINITY) return;
-  l = l * expf(m - mn) + lo * expf(mo - mn);
-  m = mn;
-}
-
-// Grid (B*H, ceil(T/16), n_chunks), as the kernels above: a block owns 16
-// query rows of one (batch, head) and one chunk of output columns. Its
-// work is a sequence of stages, each one cp.async group, issued one stage
-// ahead of the one computed (the copies of stage s + 1 land during stage
-// s's MMAs):
-//   pass 1, for each key tile: the tile's logits over the Q / K chunks,
-//     then each lane's running row max and sum over its keys;
-//   pass 2, for each key tile: the logits again (the same MMAs on the same
-//     data: the same bits), P = exp(s - m) / l in fp32 into shared memory,
-//     then a V stage: P.V over the tile into the output accumulators.
-// The row statistics are merged across the quad and the warps once, after
-// pass 1, in a fixed order. Logits, P and P.V are computed as in the
-// kernels above: bf16 MMAs with P as bf16 hi + lo, or split TF32.
+// As stage_rows, for any block size: rows [0, rows_fill) of a tile whose
+// w-aligned spans start at `span` (row stride st), the slice `e0`
+// elements in; row r < rows takes the slice's columns [0, cols), the rest
+// is zero-filled. Each thread walks its copies by the plan.
 template <typename T>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__device__ __forceinline__ void stage_kt(T* dst, const T* span, long long st,
+                                         int e0, CopyPlan p, int rows,
+                                         int rows_fill, int cols, int ld,
+                                         int w) {
+  int r = p.r, c = p.c;
+  while (r < rows_fill) {
+    const int j = c * w;  // the copy's first span column
+    const int n = r < rows ? max(0, min(w, e0 + cols - j)) : 0;
+    const T* from = n > 0 ? span + r * st + j : span;
+    if (sizeof(T) == 2 && w == 1)
+      *reinterpret_cast<unsigned short*>(dst + r * ld + j) =
+          n > 0 ? *reinterpret_cast<const unsigned short*>(from) : 0;
+    else
+      cp_async_elems(dst + r * ld + j, from, w, n);
+    r += p.dr;
+    c += p.dc;
+    if (c >= p.per_row) {
+      c -= p.per_row;
+      ++r;
+    }
+  }
+}
+
+// Two neighbouring bf16 values as one 32-bit MMA operand: one 32-bit load,
+// or two 16-bit loads where a head slice of odd D starts at an odd element
+// (kOdd).
+template <bool kOdd>
+__device__ __forceinline__ uint32_t ld_op(const __nv_bfloat16* p) {
+  if constexpr (kOdd) {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+    return (uint32_t)u[0] | ((uint32_t)u[1] << 16);
+  } else {
+    return ld32(p);
+  }
+}
+
+// Two fp32 probabilities as bf16 pairs: hi, their bf16 roundings, and lo,
+// the bf16 roundings of what is left (x - hi is exact in fp32).
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+  const __nv_bfloat162 l2 = __floats2bfloat162_rn(x0 - __low2float(h2),
+                                                  x1 - __high2float(h2));
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+// The key-tiled kernel's split TF32: big = tf32(x), rounded as cvt.rna
+// rounds; small = x - big, left in fp32 for the tensor core, which reads
+// its top 19 bits (a truncation to TF32). Two operations a split fewer
+// than split_tf32, at up to twice its error in small (emulated: within
+// 1.1e-6 of the plain version at (1,174,1,1512), 1e-5 allowed).
+__device__ __forceinline__ void split_kt(float x, uint32_t& big,
+                                         uint32_t& small) {
+  big = tf32_rna(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// load_a_split and mma_split with split_kt
+__device__ __forceinline__ void load_a_kt(const float* p, int ld,
+                                          uint32_t (&big)[4],
+                                          uint32_t (&small)[4]) {
+  split_kt(p[0], big[0], small[0]);
+  split_kt(p[8 * ld], big[1], small[1]);
+  split_kt(p[4], big[2], small[2]);
+  split_kt(p[8 * ld + 4], big[3], small[3]);
+}
+
+template <int kAcc>
+__device__ __forceinline__ void mma_kt(float (&c)[kAcc][4],
+                                       const uint32_t (&a_big)[4],
+                                       const uint32_t (&a_small)[4],
+                                       const float* b, int b_step) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split_kt(b[0], bb0, bs0);
+  split_kt(b[b_step], bb1, bs1);
+  mma_tf32(c[kAcc - 1], a_big, bs0, bs1);
+  mma_tf32(c[kAcc / 2], a_small, bb0, bb1);
+  mma_tf32(c[0], a_big, bb0, bb1);
+}
+
+// Grid (B*H, ceil(T/64), n_chunks): a block owns 64 query rows of one
+// (batch, head) and one chunk of output columns. Its warps form 1 or 2 key
+// groups of 4; group g takes the key tiles j = g (mod groups), and warp w
+// of a group owns rows 16w to 16w + 15 and keeps everything of them in
+// registers: the logits of one key tile, P, the running row max and sum,
+// and its output columns (kN 8-column tiles). One pass over the key tiles:
+//   - stage s brings columns [i*kc, i*kc + kc) of K for the groups' next
+//     key tiles (i = s % n_kc; Q's too where Q is not resident) into ring
+//     slot s % n_slots and, with chunk i_v, their V columns [c0, c0 +
+//     d_chunk) into a V buffer of their own, which lands during the
+//     tiles' logits: one cp.async group, issued n_slots - 1 stages ahead,
+//     one barrier a stage (a stage a tile where K's whole D fits);
+//   - a tile's logits (bf16 MMAs accumulating over the chunks; fp32:
+//     split TF32, each chunk's sum added into fp32 sums), times scale *
+//     log2(e), keys past T masked; the row max across the quad (two
+//     shuffles), m' = max(m, it), alpha = 2^(m - m'), P = 2^(s - m'); each
+//     lane's sum l = l alpha + its P, the output rescaled by alpha;
+//   - P.V straight from the logits' registers: bf16 as hi + lo pairs (the
+//     m16n8 C layout of two 8-key tiles is the m16n8k16 A layout); fp32 as
+//     split TF32 with the A fragment's key order permuted within each
+//     8-key step (column tg is key 2tg, tg + 4 is 2tg + 1: the C layout)
+//     and V's rows read in that order, each tile's products added into
+//     fp32 sums.
+// At the end groups 1-3 hand their (m, l, out) to group 0 through shared
+// memory, which merges them in group order (m = max, each side scaled by
+// 2^(m_side - m)), sums l across the quad and stores out / l, cast once.
+// Every sum is taken in a fixed order.
+template <typename T, int kN, bool kOdd>
+__global__ void __launch_bounds__(kKtThreads * kt_max_groups<T>(kN))
     attention_kt(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, int t_len,
                  int n_head, int d, Strides sq, Strides sk, Strides sv,
                  Strides so, float scale, KtShape sh) {
   constexpr bool kF32 = std::is_same<T, float>::value;
-  constexpr int kStep = kF32 ? 8 : 16;  // the MMAs' k step
+  constexpr int kKeys = KtKeys<T>::kKeys;
+  constexpr int kStep = KtKeys<T>::kStep;
+  constexpr int kSt = kKeys / 8;  // 8-key MMA tiles of a key tile
+  constexpr int kAcc = kF32 ? 2 : 1;  // accumulators of one product tile
+  // fp32 folds P.V's products into the output sums kGroup tiles at a time
+  constexpr int kGroup = kF32 && kN > 4 ? 4 : kN;
   extern __shared__ __align__(16) unsigned char smem_kt[];
-  T* bufs = reinterpret_cast<T*>(smem_kt);  // 2 x (16 + kKeyTile) x ldc
-  const int buf_elems = (kQTile + kKeyTile) * sh.ldc;
-  T* v_s = bufs + 2 * buf_elems;                        // kKeyTile x ldv
-  float* p_f = reinterpret_cast<float*>(v_s + kKeyTile * sh.ldv);
-  __nv_bfloat16* p_hi = reinterpret_cast<__nv_bfloat16*>(p_f);  // 16 x ldp
-  __nv_bfloat16* p_lo = p_hi + kQTile * sh.ldp;                 // 16 x ldp
-  float* red_m = p_f + kQTile * sh.ldp;       // warps x 16
-  float* red_l = red_m + kTcWarps * kQTile;   // warps x 16
-  float* red_pv = red_l + kTcWarps * kQTile;  // 16 x kRedCols
+  T* q_res = reinterpret_cast<T*>(smem_kt);  // kKtRows x ldq (q_res)
+  T* ring = q_res + (sh.q_res ? kKtRows * sh.ldq : 0);
+  T* vring = ring + sh.n_slots * sh.slot;  // n_vbuf x groups V tiles
+  const int q_len = sh.q_res ? 0 : kKtRows * sh.ldq;  // a slot's Q chunk
+  const int k_len = kKeys * sh.ldc, v_len = kKeys * sh.ldv;
 
   const int b = blockIdx.x / n_head;
   const int h = blockIdx.x - b * n_head;
-  const int t0 = blockIdx.y * kQTile;
+  const int t0 = blockIdx.y * kKtRows;
   const int c0 = blockIdx.z * sh.d_chunk;
-  const int rows = min(kQTile, t_len - t0);
-  const int warp = threadIdx.x >> 5;
+  const int rows = min(kKtRows, t_len - t0);
+  const int grp = threadIdx.x / kKtThreads;  // this warp's key group
+  const int warp = (threadIdx.x >> 5) & (kKtWarps - 1);
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // MMA fragment row (and column of B / C)
   const int tg = lane & 3;  // MMA fragment column (pair)
@@ -1037,271 +1236,313 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const long long qo = h * sq.h, ko = h * sk.h, vo = h * sv.h + c0;
   const int eq = (int)(qo % sh.wq), ek = (int)(ko % sh.wk),
             ev = (int)(vo % sh.wv);
-  const int n_kc = (sh.d_pad + sh.kc - 1) / sh.kc;    // Q / K chunks
-  const int n_kt = (t_len + kKeyTile - 1) / kKeyTile;  // key tiles
-  const int n_pass1 = n_kt * n_kc;
-  const int n_stages = n_pass1 + n_kt * (n_kc + 1);
+  const int n_kt = (t_len + kKeys - 1) / kKeys;
+  const int n_stages = (n_kt + sh.groups - 1) / sh.groups * sh.n_kc;
+  const int n_out = sh.d_chunk / 8;
+  const float sl2 = scale * 1.4426950408889634f;  // scale * log2(e)
 
-  // stage s -> key tile j, chunk i (i == n_kc: the V stage), and the
-  // index of a Q / K stage among all of them (its buffer: index & 1)
-  auto decode = [&](int s, int& j, int& i) {
-    if (s < n_pass1) {
-      j = s / n_kc;
-      i = s - j * n_kc;
-      return s;
-    }
-    const int r = s - n_pass1;
-    j = r / (n_kc + 1);
-    i = r - j * (n_kc + 1);
-    return n_pass1 + j * n_kc + i;
-  };
-  auto issue = [&](int s) {
-    if (s < n_stages) {
-      int j, i;
-      const int idx = decode(s, j, i);
-      const int key0 = j * kKeyTile;
-      const int keys = min(kKeyTile, t_len - key0);
-      if (i == n_kc) {
-        stage_rows(v_s, v0 + key0 * sv.t, vo, sv.t, keys, kKeyTile,
-                   min(sh.d_chunk, d - c0), sh.d_chunk, sh.ldv, sh.wv);
-      } else {
-        T* buf = bufs + (idx & 1) * buf_elems;
-        const int c = i * sh.kc;
-        const int width = min(sh.kc, sh.d_pad - c), cols = min(sh.kc, d - c);
-        stage_rows(buf, q0, qo + c, sq.t, rows, kQTile, cols, width,
-                   sh.ldc, sh.wq);
-        stage_rows(buf + kQTile * sh.ldc, k0 + key0 * sk.t, ko + c, sk.t,
-                   keys, kKeyTile, cols, width, sh.ldc, sh.wk);
+  // copy plans: Q and K chunks (all but the last, and the last, which may
+  // be narrower), V tiles, resident Q
+  const int last_w = sh.d_pad - (sh.n_kc - 1) * sh.kc;
+  const CopyPlan pq = copy_plan(eq, sh.kc, sh.wq);
+  const CopyPlan pq_last = copy_plan(eq, last_w, sh.wq);
+  const CopyPlan pk = copy_plan(ek, sh.kc, sh.wk);
+  const CopyPlan pk_last = copy_plan(ek, last_w, sh.wk);
+  const CopyPlan pv = copy_plan(ev, sh.d_chunk, sh.wv);
+  // the w-aligned spans of this block's Q rows, the head's K and V rows
+  const T* q_span = q0 + (qo - eq);
+  const T* k_span = k0 + (ko - ek);
+  const T* v_span = v0 + (vo - ev);
+
+  // One cp.async group a stage (an empty one past the last); keys and
+  // query rows past T and D's padding are zero-filled. Chunks start at
+  // multiples of 8 columns, so a slice's place in its span is the same in
+  // every chunk.
+  int next = 0, n_jj = 0, n_i = 0, n_slot = 0, n_vb = 0;  // the next stage
+  auto issue = [&]() {
+    const bool copy = next < n_stages;
+    if (copy) {
+      const int jj = n_jj, i = n_i;
+      T* slot = ring + n_slot * sh.slot;
+      const int c = i * sh.kc;
+      const int cols = min(sh.kc, d - c);
+      const bool last = i == sh.n_kc - 1;
+      if (!sh.q_res)
+        stage_kt(slot, q_span + c, sq.t, eq, last ? pq_last : pq, rows,
+                 kKtRows, cols, sh.ldq, sh.wq);
+      for (int gi = 0; gi < sh.groups; ++gi) {
+        const int key0 = (jj * sh.groups + gi) * kKeys;
+        if (key0 >= t_len) break;
+        const int keys = min(kKeys, t_len - key0);
+        stage_kt(slot + q_len + gi * k_len, k_span + key0 * sk.t + c, sk.t,
+                 ek, last ? pk_last : pk, keys, kKeys, cols, sh.ldc, sh.wk);
+        if (i == sh.i_v)
+          stage_kt(vring + (n_vb * sh.groups + gi) * v_len,
+                   v_span + key0 * sv.t, sv.t, ev, pv, keys, kKeys,
+                   min(sh.d_chunk, d - c0), sh.ldv, sh.wv);
       }
     }
-    cp_async_commit();  // an empty group past the last stage
+    cp_async_commit();
+    ++next;
+    if (++n_slot == sh.n_slots) n_slot = 0;
+    if (++n_i == sh.n_kc) {
+      n_i = 0;
+      ++n_jj;
+      if (++n_vb == sh.n_vbuf) n_vb = 0;
+    }
   };
 
-  // logits of this warp's 8 keys of the tile: rows g, g + 8 (three
-  // accumulators for split TF32, one for bf16), one chunk's at a time,
-  // added into xs in fp32 (the tensor cores' own sums lose low bits over
-  // a long D)
-  constexpr int kAcc = kF32 ? 3 : 1;
-  float acc[kAcc][4];
-  float xs[4];
-  // running statistics of this lane's keys (pass 1), then the rows' own
-  float m0 = -INFINITY, l0 = 0.f, m1 = -INFINITY, l1 = 0.f;
-  // P.V accumulators of this warp's tasks, one key tile's at a time,
-  // added into out_acc in fp32 (as xs)
-  constexpr int kAccPV = kF32 ? 2 : 1;
-  float cc[kKtTasks][kAccPV][4];
-  float out_acc[kKtTasks][4] = {};
-  const int n_out_tiles = sh.d_chunk / 8;
-  const int kg = sh.k_groups;
-  const int n_tasks = n_out_tiles * kg;
-  const int grp = warp / n_out_tiles;  // this warp's key steps (kg > 1)
+  if (sh.q_res)  // the block's Q rows, all of D, in stage 0's group
+    stage_kt(q_res, q_span, sq.t, eq, copy_plan(eq, sh.d_pad, sh.wq), rows,
+             kKtRows, d, sh.ldq, sh.wq);
+  for (int s = 0; s + 1 < sh.n_slots; ++s) issue();
 
-  issue(0);
+  float acc[kSt][kAcc][4];        // this warp's logits of the key tile
+  float xs[kF32 ? kSt : 1][4];    // fp32: the chunks' logits, summed
+  float oacc[kN][4];              // this warp's output columns
+#pragma unroll
+  for (int t = 0; t < kN; ++t)
+    oacc[t][0] = oacc[t][1] = oacc[t][2] = oacc[t][3] = 0.f;
+  // running row max (log2 units), rows g and g + 8, and the running sums
+  // over this lane's keys
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const int qrow = warp * 16 + g;
+
+  // stage s is key tiles jj * groups + (0, 1, ...), chunk i, ring slot
+  // s % n_slots, V buffer jj % n_vbuf: counted, not divided
+  int jj = 0, i = -1, s_slot = -1, vb = 0;
   for (int s = 0; s < n_stages; ++s) {
-    issue(s + 1);
-    cp_async_wait<1>();
-    __syncthreads();
-    int j, i;
-    const int idx = decode(s, j, i);
-    const bool pass2 = s >= n_pass1;
-    if (i < n_kc) {
-      // ---- one Q / K chunk of the tile's logits
+    if (++s_slot == sh.n_slots) s_slot = 0;
+    if (++i == sh.n_kc) {
+      i = 0;
+      ++jj;
+      if (++vb == sh.n_vbuf) vb = 0;
+    }
+    cp_async_wait_upto(sh.n_slots - 2);  // stage s has landed
+    __syncthreads();  // ... for every thread; stage s - 1's slot is free
+    issue();          // stage s + n_slots - 1
+    const int j = jj * sh.groups + grp;  // this group's key tile
+    if (j >= n_kt) continue;             // (a group's last stages)
+    const T* slot = ring + s_slot * sh.slot;
+    const int width = min(sh.kc, sh.d_pad - i * sh.kc);
+
+    // ---- this stage's columns of the key tile's logits
+    if (kF32 || i == 0) {
 #pragma unroll
-      for (int e = 0; e < 4 * kAcc; ++e) acc[e / 4][e % 4] = 0.f;
-      const T* buf = bufs + (idx & 1) * buf_elems;
-      const int width = min(sh.kc, sh.d_pad - i * sh.kc);
+      for (int e = 0; e < kSt * kAcc * 4; ++e)
+        acc[e / (kAcc * 4)][e / 4 % kAcc][e % 4] = 0.f;
+    }
+    const T* qa = (sh.q_res ? q_res + i * sh.kc : slot) + qrow * sh.ldq +
+                  eq + (kF32 ? tg : 2 * tg);
+    const T* kb =
+        slot + q_len + grp * k_len + g * sh.ldc + ek + (kF32 ? tg : 2 * tg);
+    for (int kk = 0; kk < width; kk += kStep) {
       if constexpr (kF32) {
-        const float* qa = buf + g * sh.ldc + eq + tg;
-        const float* kb = buf + (kQTile + warp * 8 + g) * sh.ldc + ek + tg;
-        for (int kk = 0; kk < width; kk += kStep) {
-          uint32_t a_big[4], a_small[4];
-          load_a_split(qa + kk, sh.ldc, a_big, a_small);
-          mma_split<3>(acc, a_big, a_small, kb + kk, 4);
-        }
+        uint32_t a_big[4], a_small[4];
+        load_a_kt(qa + kk, sh.ldq, a_big, a_small);
+        // B fragment: K[key n*8 + g][columns kk + tg, kk + tg + 4]
+#pragma unroll
+        for (int n = 0; n < kSt; ++n)
+          mma_kt<kAcc>(acc[n], a_big, a_small, kb + n * 8 * sh.ldc + kk, 4);
       } else {
-        const __nv_bfloat16* qa = buf + g * sh.ldc + eq + 2 * tg;
-        const __nv_bfloat16* kb =
-            buf + (kQTile + warp * 8 + g) * sh.ldc + ek + 2 * tg;
-        for (int kk = 0; kk < width; kk += kStep) {
-          const uint32_t a[4] = {
-              ld_pair(qa + kk), ld_pair(qa + 8 * sh.ldc + kk),
-              ld_pair(qa + kk + 8), ld_pair(qa + 8 * sh.ldc + kk + 8)};
-          mma_bf16(acc[0], a, ld_pair(kb + kk), ld_pair(kb + kk + 8));
+        const uint32_t a[4] = {
+            ld_op<kOdd>(qa + kk), ld_op<kOdd>(qa + 8 * sh.ldq + kk),
+            ld_op<kOdd>(qa + kk + 8), ld_op<kOdd>(qa + 8 * sh.ldq + kk + 8)};
+#pragma unroll
+        for (int n = 0; n < kSt; ++n) {
+          const T* kr = kb + n * 8 * sh.ldc + kk;
+          mma_bf16(acc[n][0], a, ld_op<kOdd>(kr), ld_op<kOdd>(kr + 8));
         }
       }
+    }
+    if constexpr (kF32) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float part;
-        if constexpr (kF32)
-          part = split_sum<kAcc>(acc, e);
-        else
-          part = acc[0][e];
-        xs[e] = i == 0 ? part : xs[e] + part;
-      }
-      if (i == n_kc - 1) {
-        // the tile's logits are complete: scale, mask the keys past T
-        const int col = warp * 8 + 2 * tg;  // first of this lane's 2 keys
-        float x[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[e] = j * kKeyTile + col + (e & 1) < t_len ? xs[e] * scale
-                                                       : -INFINITY;
-        if (!pass2) {
-          const float mx0 = fmaxf(x[0], x[1]), mx1 = fmaxf(x[2], x[3]);
-          if (mx0 != -INFINITY)
-            merge_stats(m0, l0, mx0, expf(x[0] - mx0) + expf(x[1] - mx0));
-          if (mx1 != -INFINITY)
-            merge_stats(m1, l1, mx1, expf(x[2] - mx1) + expf(x[3] - mx1));
-          if (j == n_kt - 1) {
-            // across the quad, then each warp's rows into shared memory
-            for (int off = 1; off < 4; off <<= 1) {
-              const float mo0 = __shfl_xor_sync(0xffffffffu, m0, off);
-              const float lo0 = __shfl_xor_sync(0xffffffffu, l0, off);
-              const float mo1 = __shfl_xor_sync(0xffffffffu, m1, off);
-              const float lo1 = __shfl_xor_sync(0xffffffffu, l1, off);
-              merge_stats(m0, l0, mo0, lo0);
-              merge_stats(m1, l1, mo1, lo1);
-            }
-            if (tg == 0) {
-              red_m[warp * kQTile + g] = m0;
-              red_l[warp * kQTile + g] = l0;
-              red_m[warp * kQTile + g + 8] = m1;
-              red_l[warp * kQTile + g + 8] = l1;
-            }
-          }
-        } else {
-          if (j == 0) {
-            // every warp's statistics, merged in warp order
-            m0 = red_m[g];
-            l0 = red_l[g];
-            m1 = red_m[g + 8];
-            l1 = red_l[g + 8];
-            for (int w = 1; w < kTcWarps; ++w) {
-              merge_stats(m0, l0, red_m[w * kQTile + g],
-                          red_l[w * kQTile + g]);
-              merge_stats(m1, l1, red_m[w * kQTile + g + 8],
-                          red_l[w * kQTile + g + 8]);
-            }
-          }
-          // P = exp(s - m) / l (keys past T: exp(-inf) = 0)
-          const float p0 = expf(x[0] - m0) / l0, p1 = expf(x[1] - m0) / l0;
-          const float p2 = expf(x[2] - m1) / l1, p3 = expf(x[3] - m1) / l1;
-          if constexpr (kF32) {
-            float* r0 = p_f + g * sh.ldp + col;
-            r0[0] = p0;
-            r0[1] = p1;
-            r0[8 * sh.ldp] = p2;
-            r0[8 * sh.ldp + 1] = p3;
-          } else {
-            const int r0 = g * sh.ldp + col, r1 = (g + 8) * sh.ldp + col;
-            store_split(p0, p1, p_hi + r0, p_lo + r0);
-            store_split(p2, p3, p_hi + r1, p_lo + r1);
-          }
-        }
-      }
-    } else if (warp < n_tasks) {
-      // ---- V stage: P.V over the tile's keys; a warp's tasks share one
-      // key range (kg > 1 leaves one task a warp)
-#pragma unroll
-      for (int e = 0; e < kKtTasks * kAccPV * 4; ++e)
-        cc[e / (kAccPV * 4)][e / 4 % kAccPV][e % 4] = 0.f;
-      if constexpr (kF32) {
-        const float* pa = p_f + g * sh.ldp + tg;
-        const float* vs = v_s + ev + tg * sh.ldv + g;
-        for (int kk = 8 * grp; kk < kKeyTile; kk += 8 * kg) {
-          uint32_t a_big[4], a_small[4];
-          load_a_split(pa + kk, sh.ldp, a_big, a_small);
-#pragma unroll
-          for (int t = 0; t < kKtTasks; ++t) {
-            const int task = warp + kTcWarps * t;
-            if (task < n_tasks)
-              mma_split<kAccPV>(cc[t], a_big, a_small,
-                                vs + kk * sh.ldv + task % n_out_tiles * 8,
-                                4 * sh.ldv);
-          }
-        }
-      } else {
-        const __nv_bfloat16* pa_hi = p_hi + g * sh.ldp + 2 * tg;
-        const __nv_bfloat16* pa_lo = p_lo + g * sh.ldp + 2 * tg;
-        const unsigned short* vs =
-            reinterpret_cast<const unsigned short*>(v_s) + ev;
-        for (int kk = 16 * grp; kk < kKeyTile; kk += 16 * kg) {
-          const uint32_t hi[4] = {
-              ld32(pa_hi + kk), ld32(pa_hi + 8 * sh.ldp + kk),
-              ld32(pa_hi + kk + 8), ld32(pa_hi + 8 * sh.ldp + kk + 8)};
-          const uint32_t lo[4] = {
-              ld32(pa_lo + kk), ld32(pa_lo + 8 * sh.ldp + kk),
-              ld32(pa_lo + kk + 8), ld32(pa_lo + 8 * sh.ldp + kk + 8)};
-#pragma unroll
-          for (int t = 0; t < kKtTasks; ++t) {
-            const int task = warp + kTcWarps * t;
-            if (task < n_tasks) {
-              // B fragment: V[key][col] for keys kk + 2*tg + {0, 1, 8, 9}
-              const unsigned short* vb =
-                  vs + (kk + 2 * tg) * sh.ldv + task % n_out_tiles * 8 + g;
-              const uint32_t b0 = vb[0] | ((uint32_t)vb[sh.ldv] << 16);
-              const uint32_t b1 =
-                  vb[8 * sh.ldv] | ((uint32_t)vb[9 * sh.ldv] << 16);
-              mma_bf16(cc[t][0], lo, b0, b1);
-              mma_bf16(cc[t][0], hi, b0, b1);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < kKtTasks; ++t) {
+      for (int n = 0; n < kSt; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          if constexpr (kF32)
-            out_acc[t][e] += split_sum<kAccPV>(cc[t], e);
-          else
-            out_acc[t][e] += cc[t][0][e];
+          const float part = split_sum<kAcc>(acc[n], e);
+          xs[n][e] = i == 0 ? part : xs[n][e] + part;
+        }
+    }
+    if (i < sh.n_kc - 1) continue;
+
+    // ---- the tile's logits are complete: scale, mask the keys past T,
+    // update the running max (the quad holds the tile's keys of a row)
+    float x[kSt][4];
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < kSt; ++n) {
+      const int key = j * kKeys + n * 8 + 2 * tg;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float raw;
+        if constexpr (kF32)
+          raw = xs[n][e];
+        else
+          raw = acc[n][0][e];
+        x[n][e] = key + (e & 1) < t_len ? raw * sl2 : -INFINITY;
+      }
+      mx0 = fmaxf(mx0, fmaxf(x[n][0], x[n][1]));
+      mx1 = fmaxf(mx1, fmaxf(x[n][2], x[n][3]));
+    }
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // every tile holds a key below T, so the new max is finite: alpha is
+    // 2^-inf = 0 at a group's first tile, never 2^(-inf - -inf)
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = exp2f(m0 - mn0), al1 = exp2f(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < kSt; ++n) {
+      x[n][0] = exp2f(x[n][0] - mn0);
+      x[n][1] = exp2f(x[n][1] - mn0);
+      x[n][2] = exp2f(x[n][2] - mn1);
+      x[n][3] = exp2f(x[n][3] - mn1);
+      ps0 += x[n][0] + x[n][1];
+      ps1 += x[n][2] + x[n][3];
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int t = 0; t < kN; ++t) {
+      oacc[t][0] *= al0;
+      oacc[t][1] *= al0;
+      oacc[t][2] *= al1;
+      oacc[t][3] *= al1;
+    }
+
+    // ---- P.V over the tile's keys into this warp's output columns
+    const T* vt = vring + (vb * sh.groups + grp) * v_len;
+#pragma unroll
+    for (int t0g = 0; t0g < kN; t0g += kGroup) {
+      float cc[kF32 ? kGroup : 1][kAcc][4];  // fp32: this tile's products
+      if constexpr (kF32) {
+#pragma unroll
+        for (int e = 0; e < kGroup * kAcc * 4; ++e)
+          cc[e / (kAcc * 4)][e / 4 % kAcc][e % 4] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < kKeys; ks += kStep) {
+        const int st = ks / 8;  // the step's first 8-key MMA tile
+        if constexpr (kF32) {
+          // A: rows g, g + 8; column tg is key 2tg, column tg + 4 is key
+          // 2tg + 1 of the step
+          uint32_t a_big[4], a_small[4];
+          split_kt(x[st][0], a_big[0], a_small[0]);
+          split_kt(x[st][2], a_big[1], a_small[1]);
+          split_kt(x[st][1], a_big[2], a_small[2]);
+          split_kt(x[st][3], a_big[3], a_small[3]);
+          // B: V[keys ks + 2tg, ks + 2tg + 1][column tile*8 + g]
+          const float* vb = vt + ev + (ks + 2 * tg) * sh.ldv + g;
+#pragma unroll
+          for (int t = 0; t < kGroup; ++t)
+            if (t0g + t < n_out)
+              mma_kt<kAcc>(cc[t], a_big, a_small, vb + (t0g + t) * 8,
+                           sh.ldv);
+        } else {
+          // A: rows g, g + 8; keys 2tg, 2tg + 1 and 2tg + 8, 2tg + 9
+          uint32_t hi[4], lo[4];
+          split_pair(x[st][0], x[st][1], hi[0], lo[0]);
+          split_pair(x[st][2], x[st][3], hi[1], lo[1]);
+          split_pair(x[st + 1][0], x[st + 1][1], hi[2], lo[2]);
+          split_pair(x[st + 1][2], x[st + 1][3], hi[3], lo[3]);
+          // B: V[keys ks + 2tg + {0, 1, 8, 9}][column tile*8 + g]
+          const unsigned short* vb =
+              reinterpret_cast<const unsigned short*>(vt) + ev +
+              (ks + 2 * tg) * sh.ldv + g;
+#pragma unroll
+          for (int t = 0; t < kGroup; ++t)
+            if (t0g + t < n_out) {
+              const unsigned short* vc = vb + (t0g + t) * 8;
+              const uint32_t b0 = vc[0] | ((uint32_t)vc[sh.ldv] << 16);
+              const uint32_t b1 =
+                  vc[8 * sh.ldv] | ((uint32_t)vc[9 * sh.ldv] << 16);
+              mma_bf16(oacc[t0g + t], lo, b0, b1);
+              mma_bf16(oacc[t0g + t], hi, b0, b1);
+            }
         }
       }
+      if constexpr (kF32) {
+#pragma unroll
+        for (int t = 0; t < kGroup; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            oacc[t0g + t][e] += split_sum<kAcc>(cc[t], e);
+      }
     }
-    __syncthreads();  // stage s consumed: its buffers take stage s + 2
   }
 
-  // ---- store: one cast at the store, element by element (any D, any
-  // output strides); shared tiles' partial sums added in group order
+  // ---- groups 1-3's (m, l, out) into group 0's, in group order, through
+  // shared memory over the ring (a thread of group g holds the same rows
+  // and fragment places as its counterpart in group 0)
+  if (sh.groups > 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // every stage consumed: the ring is free
+    float* side = reinterpret_cast<float*>(smem_kt) +
+                  (threadIdx.x & (kKtThreads - 1)) * kt_merge_floats(kN);
+    constexpr int kSide = kKtThreads * kt_merge_floats(kN);
+    if (grp > 0) {
+      float* mine = side + (grp - 1) * kSide;
+      mine[0] = m0;
+      mine[1] = m1;
+      mine[2] = l0;
+      mine[3] = l1;
+#pragma unroll
+      for (int t = 0; t < kN; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mine[4 + 4 * t + e] = oacc[t][e];
+    }
+    __syncthreads();
+    if (grp > 0) return;
+    // group 0 has tile 0, so m0, m1 stay finite; another group's are -inf
+    // where it had no tile, and its side then weighs 2^-inf = 0
+    for (int gi = 1; gi < sh.groups; ++gi) {
+      const float* other = side + (gi - 1) * kSide;
+      const float mo0 = other[0], mo1 = other[1];
+      const float mn0 = fmaxf(m0, mo0), mn1 = fmaxf(m1, mo1);
+      const float a0 = exp2f(m0 - mn0), b0 = exp2f(mo0 - mn0);
+      const float a1 = exp2f(m1 - mn1), b1 = exp2f(mo1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      l0 = l0 * a0 + other[2] * b0;
+      l1 = l1 * a1 + other[3] * b1;
+#pragma unroll
+      for (int t = 0; t < kN; ++t) {
+        oacc[t][0] = oacc[t][0] * a0 + other[4 + 4 * t] * b0;
+        oacc[t][1] = oacc[t][1] * a0 + other[5 + 4 * t] * b0;
+        oacc[t][2] = oacc[t][2] * a1 + other[6 + 4 * t] * b1;
+        oacc[t][3] = oacc[t][3] * a1 + other[7 + 4 * t] * b1;
+      }
+    }
+  }
+
+  // ---- out = sums / l, the row's l summed across the quad; one cast at
+  // the store, element by element (any D, any output strides)
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
   T* ob = o + b * so.b + h * so.h + t0 * so.t;
-  auto store = [&](int r, int col, float x) {
-    if (r < rows && c0 + col < d) {
+  auto store = [&](int r, int col, float val) {
+    if (r < rows && col < d) {
       if constexpr (kF32)
-        ob[r * so.t + c0 + col] = x;
+        ob[r * so.t + col] = val;
       else
-        ob[r * so.t + c0 + col] = __float2bfloat16_rn(x);
+        ob[r * so.t + col] = __float2bfloat16_rn(val);
     }
   };
 #pragma unroll
-  for (int t = 0; t < kKtTasks; ++t) {
-    const int task = warp + kTcWarps * t;
-    if (task < n_tasks) {
-      const float* c = out_acc[t];
-      const int col = task % n_out_tiles * 8 + 2 * tg;
-      if (kg == 1) {
-        store(g, col, c[0]);
-        store(g, col + 1, c[1]);
-        store(g + 8, col, c[2]);
-        store(g + 8, col + 1, c[3]);
-      } else {
-        float* red = red_pv + (grp * kQTile + g) * sh.d_chunk + col;
-        red[0] = c[0];
-        red[1] = c[1];
-        red[8 * sh.d_chunk] = c[2];
-        red[8 * sh.d_chunk + 1] = c[3];
-      }
-    }
-  }
-  if (kg > 1) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < kQTile * sh.d_chunk; i += kTcThreads) {
-      const int r = i / sh.d_chunk;
-      const int col = i - r * sh.d_chunk;
-      float x = 0.f;
-      for (int gi = 0; gi < kg; ++gi)
-        x += red_pv[(gi * kQTile + r) * sh.d_chunk + col];
-      store(r, col, x);
+  for (int t = 0; t < kN; ++t) {
+    if (t < n_out) {
+      const int col = c0 + t * 8 + 2 * tg;
+      store(qrow, col, oacc[t][0] / l0);
+      store(qrow, col + 1, oacc[t][1] / l0);
+      store(qrow + 8, col, oacc[t][2] / l1);
+      store(qrow + 8, col + 1, oacc[t][3] / l1);
     }
   }
 }
@@ -1521,48 +1762,151 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v,
                                         sv, so, scale, sh, grid, dev, stream);
 }
 
+// kN: the fewest 8-column output tiles a warp (2, 4, 8, 16 or 24) that
+// hold `tiles`.
+int kt_tiles(int tiles) {
+  return tiles <= 2 ? 2 : tiles <= 4 ? 4 : tiles <= 8 ? 8 : tiles <= 16 ? 16
+                                                                        : 24;
+}
+
+// The key-tiled kernel's shared memory, among the layouts that fit a
+// block: the fewest stages a key tile (K chunks as wide as fit: all of D
+// where they can, one barrier a tile), then Q resident over Q streamed,
+// then three ring slots over two. False where nothing fits. (A block's
+// registers leave no room for a second one on its SM.)
+template <typename T>
+bool kt_layout(KtShape& s, int n_tiles) {
+  constexpr int step = KtKeys<T>::kStep, keys = KtKeys<T>::kKeys;
+  constexpr int pad = std::is_same<T, float>::value ? 4 : 8;
+  KtShape best = s;
+  long long best_key = -1;
+  for (int q_res = 1; q_res >= 0; --q_res)
+    for (int kc = s.d_pad;; kc = round_up(kc / 2, step)) {
+      for (int slots = 3; slots >= 2; --slots) {
+        KtShape c = s;
+        c.kc = kc;
+        c.n_kc = ceil_div(s.d_pad, kc);
+        c.q_res = q_res;
+        c.ldc = kc + pad;
+        c.ldq = q_res ? s.d_pad + pad : c.ldc;
+        c.n_slots = slots;
+        c.slot = (q_res ? 0 : kKtRows * c.ldq) + s.groups * keys * c.ldc;
+        // V tiles j + n_vbuf go out with stage i_v of their tile, n_slots
+        // - 1 stages ahead, so after tile j's last stage only where
+        // (n_vbuf - 1) * n_kc + i_v > n_slots - 2: one buffer, issued
+        // with stage n_slots - 1, where a tile has that many stages; else
+        // with stage 0 into 2 buffers, or 3 (one-stage tiles, 3 slots)
+        c.n_vbuf = c.n_kc >= slots ? 1 : c.n_kc >= slots - 1 ? 2 : 3;
+        c.i_v = c.n_vbuf == 1 ? slots - 1 : 0;
+        const size_t bytes = smem_bytes_kt<T>(c, n_tiles);
+        if (bytes > (size_t)kSmemMax) continue;
+        // smaller is better: stages a tile, Q streamed, two slots
+        const long long key =
+            (long long)c.n_kc * 4 + (1 - q_res) * 2 + (slots == 2);
+        if (best_key < 0 || key < best_key) {
+          best_key = key;
+          best = c;
+        }
+      }
+      if (kc <= step) break;
+    }
+  if (best_key < 0) return false;
+  s = best;
+  return true;
+}
+
+template <typename T, int kN, bool kOdd>
+cudaError_t launch_kt_n(const T* q, const T* k, const T* v, T* o, int t_len,
+                        int n_head, int d, Strides sq, Strides sk, Strides sv,
+                        Strides so, float scale, const KtShape& sh, dim3 grid,
+                        int dev, cudaStream_t stream) {
+  static unsigned long long raised = 0;
+  const cudaError_t err =
+      raise_smem(attention_kt<T, kN, kOdd>, &raised, dev, kSmemMax);
+  if (err != cudaSuccess) return err;
+  attention_kt<T, kN, kOdd>
+      <<<grid, kKtThreads * sh.groups, smem_bytes_kt<T>(sh, kN), stream>>>(
+          q, k, v, o, t_len, n_head, d, sq, sk, sv, so, scale, sh);
+  return cudaGetLastError();
+}
+
+template <typename T, bool kOdd>
+cudaError_t launch_kt_odd(const T* q, const T* k, const T* v, T* o,
+                          int t_len, int n_head, int d, Strides sq,
+                          Strides sk, Strides sv, Strides so, float scale,
+                          const KtShape& sh, int n_tiles, dim3 grid, int dev,
+                          cudaStream_t stream) {
+  if (n_tiles == 2)
+    return launch_kt_n<T, 2, kOdd>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                   so, scale, sh, grid, dev, stream);
+  if (n_tiles == 4)
+    return launch_kt_n<T, 4, kOdd>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                   so, scale, sh, grid, dev, stream);
+  if (n_tiles == 8)
+    return launch_kt_n<T, 8, kOdd>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                   so, scale, sh, grid, dev, stream);
+  if (n_tiles == 16)
+    return launch_kt_n<T, 16, kOdd>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                    so, scale, sh, grid, dev, stream);
+  return launch_kt_n<T, 24, kOdd>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                  so, scale, sh, grid, dev, stream);
+}
+
+// Whether a tensor's head slices may start at an odd element of its copy
+// span (bf16 of odd head stride, copied more than one element at a time).
+bool odd_slices(const Strides& s, int n_head, int w) {
+  return w > 1 && n_head > 1 && s.h % 2 != 0;
+}
+
 template <typename T>
 cudaError_t launch_kt(const T* q, const T* k, const T* v, T* o, int batch,
                       int t_len, int n_head, int d, Strides sq, Strides sk,
                       Strides sv, Strides so, float scale, int dev,
                       cudaStream_t stream) {
   constexpr bool f32 = std::is_same<T, float>::value;
+  constexpr int max_tiles = 24;  // output tiles a warp at most
   KtShape sh;
-  sh.d_pad = round_up(d, f32 ? 8 : 16);
-  sh.kc = sh.d_pad < kKtChunk ? sh.d_pad : kKtChunk;
-  sh.ldc = sh.kc + (f32 ? 4 : 8);
-  sh.ldp = kKeyTile + (f32 ? 4 : 8);
+  sh.d_pad = round_up(d, KtKeys<T>::kStep);
   sh.wq = copy_width<T>(q, sq, batch, t_len);
   sh.wk = copy_width<T>(k, sk, batch, t_len);
   sh.wv = copy_width<T>(v, sv, batch, t_len);
-  // column chunks of at most kKtMaxCols, and more of them, down to 8
-  // columns, while the grid has fewer blocks than the card has SMs
+  // the fewest column chunks whose accumulators fit a warp's registers;
+  // more, down to 8 columns, while the grid would leave a tenth of the
+  // card's SMs without a block (each chunk computes the logits again)
   int sms = 0;
   const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long long d8 = round_up(d, 8);
-  const long long base = (long long)batch * n_head * ceil_div(t_len, kQTile);
-  long long n_chunks = (d8 + kKtMaxCols - 1) / kKtMaxCols;
-  const long long fill = (sms + base - 1) / base;
-  if (fill > n_chunks) n_chunks = fill < d8 / 8 ? fill : d8 / 8;
-  sh.d_chunk = (int)((d8 + n_chunks - 1) / n_chunks + 7) / 8 * 8;
-  n_chunks = (d8 + sh.d_chunk - 1) / sh.d_chunk;
-  sh.ldv = f32 ? round_up(sh.d_chunk, 16) + 8 : sh.d_chunk + 8;
-  const int n_out_tiles = sh.d_chunk / 8;
-  sh.k_groups = n_out_tiles >= kTcWarps ? 1 : kTcWarps / n_out_tiles;
+  const long long tiles = ceil_div(d, 8);
+  const long long rows = ceil_div(t_len, kKtRows);
+  const long long base = (long long)batch * n_head * rows;
+  long long n_chunks = (tiles + max_tiles - 1) / max_tiles;
+  const long long fill = (sms * 9 / 10 + base - 1) / base;
+  if (fill > n_chunks) n_chunks = fill < tiles ? fill : tiles;
+  sh.d_chunk = (int)((tiles + n_chunks - 1) / n_chunks) * 8;
+  n_chunks = (8 * tiles + sh.d_chunk - 1) / sh.d_chunk;
+  sh.ldv = f32 ? round_up(sh.d_chunk, 16) + 4 : round_up(sh.d_chunk, 32) + 8;
+  const int n_tiles = kt_tiles(sh.d_chunk / 8);
+  // key groups: as many as the kernel's registers allow and the key tiles
+  // fill, fewer where their stages do not fit
+  const int n_kt = ceil_div(t_len, KtKeys<T>::kKeys);
+  sh.groups = kt_max_groups<T>(n_tiles);
+  if (sh.groups > n_kt) sh.groups = n_kt;
+  while (!kt_layout<T>(sh, n_tiles))
+    if (--sh.groups < 1) return cudaErrorInvalidValue;
   // the grid's limits: 2^31 - 1 blocks along x, 65535 along y and z
-  const long long rows = ceil_div(t_len, kQTile);
   if ((long long)batch * n_head > 2147483647LL || rows > 65535 ||
       n_chunks > 65535)
     return cudaErrorInvalidValue;
-  static unsigned long long raised = 0;
-  const cudaError_t e2 = raise_smem(attention_kt<T>, &raised, dev, kSmemMax);
-  if (e2 != cudaSuccess) return e2;
   const dim3 grid(batch * n_head, (unsigned)rows, (unsigned)n_chunks);
-  attention_kt<T><<<grid, kTcThreads, smem_bytes_kt<T>(sh), stream>>>(
-      q, k, v, o, t_len, n_head, d, sq, sk, sv, so, scale, sh);
-  return cudaGetLastError();
+  if constexpr (!f32) {
+    if (odd_slices(sq, n_head, sh.wq) || odd_slices(sk, n_head, sh.wk))
+      return launch_kt_odd<T, true>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                    so, scale, sh, n_tiles, grid, dev,
+                                    stream);
+  }
+  return launch_kt_odd<T, false>(q, k, v, o, t_len, n_head, d, sq, sk, sv,
+                                 so, scale, sh, n_tiles, grid, dev, stream);
 }
 
 // Row starts and strides the resident-K bf16 kernel reads: 16-byte
@@ -1581,9 +1925,9 @@ extern "C" {
 // One call's arguments, packed by the wrapper (ops/attention.py) in this
 // order. Strides are in elements, for (b, t, h); the D stride must be 1
 // (the wrapper copies a tensor whose D stride is not). dtype: 0 =
-// float32, 1 = bfloat16. key_tiled: 0 = the rule in the header, 1 = the
-// key-tiled kernel at any shape (for measuring the kernels against each
-// other).
+// float32, 1 = bfloat16. force: 0 = the rule in the header, 1 = the
+// key-tiled kernel at any shape, 2 = the resident kernels wherever they
+// take the shape (for measuring the kernels against each other).
 struct AttentionArgs {
   const void* q;
   const void* k;
@@ -1591,37 +1935,49 @@ struct AttentionArgs {
   void* o;
   long long q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, o_sb, o_st,
       o_sh;
-  int batch, t_len, n_head, d, dtype, key_tiled;
+  int batch, t_len, n_head, d, dtype, force;
 };
 
-// The dispatch rule (header): 1 = the resident kernels, inside their
-// domain (bf16: an even D, K within shared memory and rows the kernel
-// reads), 2 = key-tiled; -1 for arguments no kernel takes.
+// The dispatch rule (header): 1 = the resident kernels; 2 = key-tiled,
+// which alone takes the shape; 3 = key-tiled, faster where the resident
+// kernels take it too; -1 for arguments no kernel takes. The resident
+// kernels' domain: T <= 1024 and D <= 512; bf16 also an even D, K within
+// shared memory and rows the kernel reads.
 int tf_attention_route(const AttentionArgs* a) {
   const int batch = a->batch, t_len = a->t_len, d = a->d;
   if (batch < 1 || a->n_head < 1 || t_len < 1 || d < 1 ||
       (a->dtype != 0 && a->dtype != 1))
     return -1;
   if (t_len > kResidentMaxT || d > kResidentMaxD) return 2;
-  if (a->dtype == 0) return 1;
-  const Strides sq{a->q_sb, a->q_st, a->q_sh}, sk{a->k_sb, a->k_st, a->k_sh},
-      sv{a->v_sb, a->v_st, a->v_sh}, so{a->o_sb, a->o_st, a->o_sh};
-  TcShape unused;
-  const bool resident =
-      d % 2 == 0 && tc_room(t_len, d, unused) >= 8 &&
-      bf16_rows_readable(a->q, sq, batch, t_len, 16, 8) &&
-      bf16_rows_readable(a->k, sk, batch, t_len, 16, 8) &&
-      bf16_rows_readable(a->v, sv, batch, t_len, 16, 8) &&
-      bf16_rows_readable(a->o, so, batch, t_len, 4, 2);
-  return resident ? 1 : 2;
+  if (a->dtype == 1) {
+    const Strides sq{a->q_sb, a->q_st, a->q_sh},
+        sk{a->k_sb, a->k_st, a->k_sh}, sv{a->v_sb, a->v_st, a->v_sh},
+        so{a->o_sb, a->o_st, a->o_sh};
+    TcShape unused;
+    const bool resident =
+        d % 2 == 0 && tc_room(t_len, d, unused) >= 8 &&
+        bf16_rows_readable(a->q, sq, batch, t_len, 16, 8) &&
+        bf16_rows_readable(a->k, sk, batch, t_len, 16, 8) &&
+        bf16_rows_readable(a->v, sv, batch, t_len, 16, 8) &&
+        bf16_rows_readable(a->o, so, batch, t_len, 4, 2);
+    if (!resident) return 2;
+  }
+  // the key-tiled kernel where it ran faster at the shapes both take
+  // (header): T above 384 (but fp32 at D above 384), and fp32 at D of 144
+  // and more over 8 or more (batch, head) pairs
+  const bool long_t = t_len > kKtMinT && (a->dtype == 1 || d <= kKtMaxF32D);
+  const bool wide_f32 =
+      a->dtype == 0 && (long long)batch * a->n_head >= 8 && d >= 144;
+  return long_t || wide_f32 ? 3 : 1;
 }
 
 // Returns a cudaError_t (0 = launched).
 int tf_attention_forward(const AttentionArgs* a, void* stream) {
   const int batch = a->batch, t_len = a->t_len, n_head = a->n_head, d = a->d;
   const int rule = tf_attention_route(a);
-  if (rule < 0) return (int)cudaErrorInvalidValue;
-  const bool resident = rule == 1 && !a->key_tiled;
+  if (rule < 0 || (a->force == 2 && rule == 2))
+    return (int)cudaErrorInvalidValue;
+  const bool resident = a->force == 2 || (rule == 1 && a->force == 0);
   const Strides sq{a->q_sb, a->q_st, a->q_sh}, sk{a->k_sb, a->k_st, a->k_sh},
       sv{a->v_sb, a->v_st, a->v_sh}, so{a->o_sb, a->o_st, a->o_sh};
   int dev = 0;

@@ -14,10 +14,13 @@ big.small + small.big with fp32 sums). One TF32 product keeps 10 mantissa
 bits and would miss the fp32 tolerance of 1e-5 by 40-54x; the split keeps
 about 22, within it (tests/test_torch_attention.py emulates both). Which
 of its kernels runs is a rule on the shape, in the kernel's header: the
-resident kernels for T <= 1024 and D <= 512 (bf16 also needs an even D,
-rows it can read and K within shared memory), the key-tiled kernel for
-every other shape. ``_attention_key_tiled`` forces the key-tiled kernel,
-for the comparison the rule rests on (chip_smoke.py, the card tests).
+resident kernels where they take the shape (T <= 1024 and D <= 512; bf16
+also an even D, rows they can read and K within shared memory) and ran
+faster on the card (T up to 384, but for fp32 at D >= 144 over 8 or more
+(batch, head) pairs; fp32 at D above 384), the key-tiled kernel for every
+other shape.
+``_attention_key_tiled`` and ``_attention_resident`` force one kernel, for
+the comparison the rule rests on (chip_smoke.py, the card tests).
 
 Both follow the Pallas kernel, not the JAX package's einsum fallback: the
 probabilities P stay fp32 through P.V (the fallback casts P to the input
@@ -32,9 +35,9 @@ Layout steps before a launch, each a copy counted in ``copies``: a tensor
 whose D stride is not 1 (and D > 1) is made contiguous ("d_stride"); a
 bf16 tensor with an even D whose rows the resident kernel cannot read
 (the tensor-parallel GPT's 2-head shards) is copied into padded rows
-("bf16_rows", ``_bf16_rows``), but only where the dispatch rule then
-picks the resident kernel (it asks the rule first). The key-tiled kernel
-reads any other layout in place, odd bf16 D included.
+("bf16_rows", ``_bf16_rows``), but only where the resident kernel then
+runs (it asks the rule first, or the resident kernel is forced). The
+key-tiled kernel reads any other layout in place, odd bf16 D included.
 
 Under an active ``ops.flops.FlopCounter`` a call adds its 4 B H T^2 D
 operations by formula (the counter cannot see the kernel), and the plain
@@ -55,8 +58,9 @@ from .dtypes import acc_dtype
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/attention.cu's AttentionArgs: q, k, v, out pointers; (b, t, h)
-# strides of each; B, T, H, D, dtype code, key_tiled (one packed argument
-# costs the host less than 23 ctypes conversions)
+# strides of each; B, T, H, D, dtype code, force (0 the rule, 1 the
+# key-tiled kernel, 2 the resident ones; one packed argument costs the
+# host less than 23 ctypes conversions)
 _ARGS = struct.Struct("<4Q12q6i")
 _ARGTYPES = (ctypes.c_char_p, ctypes.c_void_p)
 
@@ -149,27 +153,29 @@ def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
     return rows.copy_(x)
 
 
-def _pack(views, shape, dtype: torch.dtype, key_tiled: bool = False) -> bytes:
+def _pack(views, shape, dtype: torch.dtype, force: int = 0) -> bytes:
     """AttentionArgs for q, k, v and out, each as (pointer, strides)."""
     return _ARGS.pack(*(ptr for ptr, _ in views),
                       *(s for _, strides in views for s in strides),
-                      *shape, _DTYPE_CODE[dtype], int(key_tiled))
+                      *shape, _DTYPE_CODE[dtype], force)
 
 
 def _route_code(args: bytes) -> int:
     """csrc/attention.cu's dispatch rule on packed arguments: 1 the
-    resident kernels, 2 the key-tiled kernel, -1 none (copies and
-    launches nothing)."""
+    resident kernels, 2 the key-tiled kernel (alone in taking the shape),
+    3 the key-tiled kernel where the resident ones take the shape too, -1
+    none (copies and launches nothing)."""
     fn = kernels.function("attention", "tf_attention_route",
                           (ctypes.c_char_p,))
     return fn(args)
 
 
-def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          force: int = 0):
     """The layout steps for q, k, v, decided but not taken: whether rows
-    the resident kernel cannot read get padded (only where the rule then
-    picks it), and the (pointer, strides) of q, k, v and out that the
-    kernel would read."""
+    the resident kernel cannot read get padded (only where it then runs:
+    by the rule, or forced), and the (pointer, strides) of q, k, v and
+    out that the kernel would read."""
     unreadable = [_unreadable_rows(x) for x in (q, k, v)]
 
     def views(pad):
@@ -179,16 +185,17 @@ def _plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
                torch.empty_like(q, device="meta").stride()[:3])
         return ins + [(0, out)]
 
-    pad = any(unreadable) and _route_code(
-        _pack(views(True), q.shape, q.dtype)) == 1
+    pad = any(unreadable) and force != 1 and (force == 2 or _route_code(
+        _pack(views(True), q.shape, q.dtype)) == 1)
     return pad, views(pad)
 
 
-def _layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+def _layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            force: int = 0):
     """The wrapper's layout steps (module docstring): q, k, v as the
     kernel reads them, and the output buffer (q's layout where dense,
     else contiguous)."""
-    pad, _ = _plan(q, k, v)
+    pad, _ = _plan(q, k, v, force)
     q, k, v = (_bf16_rows(_unit_d_stride(x)) if pad else _unit_d_stride(x)
                for x in (q, k, v))
     return q, k, v, torch.empty_like(q)
@@ -201,16 +208,26 @@ def kernel_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     _check(q, k, v)
     _, views = _plan(q, k, v)
     code = _route_code(_pack(views, q.shape, q.dtype))
-    if code not in (1, 2):
+    if code not in (1, 2, 3):
         raise ValueError(f"no attention kernel takes {tuple(q.shape)} "
                          f"{q.dtype}")
     return "resident" if code == 1 else "key_tiled"
 
 
+def _resident_takes(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> bool:
+    """Whether the resident kernels take these CUDA inputs (after the
+    layout steps ``_attention_resident`` would take), whichever kernel the
+    rule picks; copies and launches nothing."""
+    _check(q, k, v)
+    _, views = _plan(q, k, v, force=2)
+    return _route_code(_pack(views, q.shape, q.dtype)) in (1, 3)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
     """(B, T, H, D) fused attention; the output has q's dtype."""
-    return _forward(q, k, v, key_tiled=False)
+    return _forward(q, k, v, force=0)
 
 
 def _attention_key_tiled(q: torch.Tensor, k: torch.Tensor,
@@ -218,10 +235,18 @@ def _attention_key_tiled(q: torch.Tensor, k: torch.Tensor,
     """``attention`` on the key-tiled kernel at any shape on a card,
     whatever the rule picks: for measuring the kernels against each other
     (chip_smoke.py, tests/test_torch_kernels_cuda.py)."""
-    return _forward(q, k, v, key_tiled=True)
+    return _forward(q, k, v, force=1)
 
 
-def _forward(q, k, v, key_tiled: bool) -> torch.Tensor:
+def _attention_resident(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """``attention`` on the resident kernels wherever they take the shape
+    (``_resident_takes``), whatever the rule picks; raises elsewhere. For
+    the same measurements as ``_attention_key_tiled``."""
+    return _forward(q, k, v, force=2)
+
+
+def _forward(q, k, v, force: int) -> torch.Tensor:
     dev = q.device
     if q.dim() == 4:
         flops.count("attention", flops.attention_flops(*q.shape))
@@ -239,14 +264,15 @@ def _forward(q, k, v, key_tiled: bool) -> torch.Tensor:
             "attn_pdrop > 0, which takes the explicit-probabilities branch")
     if q.numel() == 0:
         return torch.empty_like(q)
-    q, k, v, out = _layout(q, k, v)
+    q, k, v, out = _layout(q, k, v, force)
     err = kernels.call(
         kernels.function("attention", "tf_attention_forward", _ARGTYPES),
         dev, _pack([_view(x) for x in (q, k, v, out)], q.shape, q.dtype,
-                   key_tiled))
+                   force))
     if err != 0:
+        forced = ("", ", key-tiled", ", resident")[force]
         raise RuntimeError(f"attention kernel launch failed: CUDA error "
                            f"{err} at shape {tuple(q.shape)} {q.dtype}"
-                           f"{', key-tiled' if key_tiled else ''}")
+                           f"{forced}")
     kernels.count_launch("attention")
     return out

@@ -1,15 +1,20 @@
-"""Where the fp32 attention kernel's time goes, on a card.
+"""Where the attention kernels' time goes, on a card.
 
     python -m transfuser_torch.tools.attention_ablation
 
-Builds variants of ``csrc/attention.cu`` with parts of the fp32 kernel's
-work taken out (the logits' MMA loop, the reloads of K chunks after the
-first two, the P.V loop) and prints, as one JSON line per variant and
-shape, each one's device time per call (torch.profiler) at the fusion
-GPT's fp32 shapes. A variant's output is wrong by design: only its time
-means anything, and the differences between variants split the kernel's
-time into its parts. The variants build into ``transfuser_torch/_build/``
-(git-ignored) with the port's nvcc flags; the port never calls them.
+Builds variants of ``csrc/attention.cu`` with parts of a kernel's work
+taken out and prints, as one JSON line per variant, shape and dtype, each
+one's device time per call (torch.profiler):
+  - the resident fp32 kernel at the fusion GPT's fp32 shapes: the logits'
+    MMA loop, the reloads of K chunks after the first two, the P.V loop;
+  - the key-tiled kernel (forced) at the 2016-token grid, (1,2016,4,D)
+    for D = 144 and 378, in both dtypes: the logits' MMAs (QK^T), the
+    P.V MMAs, and the K / V (and streamed Q) copies after the ring's
+    first fill.
+A variant's output is wrong by design: only its time means anything, and
+the differences between variants split the kernel's time into its parts.
+The variants build into ``transfuser_torch/_build/`` (git-ignored) with
+the port's nvcc flags; the port never calls them.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import sys
 import torch
 
 from transfuser_torch.ops import kernels
-from transfuser_torch.ops.attention import _ARGS, _ARGTYPES
+from transfuser_torch.ops.attention import _ARGS, _ARGTYPES, _DTYPE_CODE
 
 SHAPES = [(1, 174, 4, d) for d in (18, 54, 144, 378)] + [(4, 174, 2, 378)]
+KT_SHAPES = [(1, 2016, 4, d) for d in (144, 378)]
 
 # `scale > 1e30f` is never true, but the compiler cannot know it: the loop
 # it guards is kept in the binary and runs zero times
@@ -35,12 +41,36 @@ _NO_RELOADS = ("      stage_chunk(i + 2);\n", "      cp_async_commit();\n")
 _NO_PV = ("    for (int kk = key0 + 8 * grp; kk < key1 && warp < n_tasks;",
           "    for (int kk = key0 + 8 * grp;\n"
           "         kk < key1 && warp < n_tasks && scale > 1e30f;")
+# the key-tiled kernel (attention_kt): its QK^T loop, its P.V loop, and
+# every stage's copies after the ring's first n_slots stages
+_KT_NO_QK = ("    for (int kk = 0; kk < width; kk += kStep) {",
+             "    for (int kk = 0; kk < width * (int)(scale > 1e30f); "
+             "kk += kStep) {")
+_KT_NO_PV = ("      for (int ks = 0; ks < kKeys; ks += kStep) {",
+             "      for (int ks = 0; ks < kKeys * (int)(scale > 1e30f); "
+             "ks += kStep) {")
+_KT_NO_COPIES = ("    const bool copy = next < n_stages;",
+                 "    const bool copy = next < min(n_stages, sh.n_slots);")
 VARIANTS = {
     "kernel": [],
     "no_logit_mmas": [_NO_LOGITS],
     "no_logit_mmas_no_pv": [_NO_LOGITS, _NO_PV],
     "first_two_k_chunks_only": [_NO_LOGITS, _NO_PV, _NO_RELOADS],
+    "kt_no_qk_mmas": [_KT_NO_QK],
+    "kt_no_pv_mmas": [_KT_NO_PV],
+    "kt_no_mmas": [_KT_NO_QK, _KT_NO_PV],
+    "kt_no_kv_copies": [_KT_NO_COPIES],
 }
+# which variants run where: (shapes, dtypes, the kernel forced: 2 the
+# resident ones, 1 the key-tiled one, as AttentionArgs.force)
+RUNS = [
+    (SHAPES, (torch.float32,), 2,
+     ["kernel", "no_logit_mmas", "no_logit_mmas_no_pv",
+      "first_two_k_chunks_only"]),
+    (KT_SHAPES, (torch.bfloat16, torch.float32), 1,
+     ["kernel", "kt_no_qk_mmas", "kt_no_pv_mmas", "kt_no_mmas",
+      "kt_no_kv_copies"]),
+]
 
 
 def variant_sources() -> dict:
@@ -114,21 +144,28 @@ def main() -> int:
     fns = build_variants()
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for shape in SHAPES:
-        q, k, v = (torch.randn(shape, generator=gen, device="cuda")
-                   for _ in range(3))
-        out = torch.empty_like(q)
-        args = _ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                          *v.stride()[:3], *out.stride()[:3], *shape, 0, 0)
-        for name, fn in fns.items():
-            def call(fn=fn):
-                err = fn(args, stream)
-                if err != 0:
-                    raise RuntimeError(f"variant {name}: CUDA error {err}")
-            print(json.dumps({"variant": name, "shape": list(shape),
-                              "device_ms": device_ms(call), "card": card}),
-                  flush=True)
+    for shapes, dtypes, force, names in RUNS:
+        for dtype in dtypes:
+            for shape in shapes:
+                q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+                           .to(dtype) for _ in range(3))
+                out = torch.empty_like(q)
+                args = _ARGS.pack(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                    *out.stride()[:3], *shape, _DTYPE_CODE[dtype], force)
+                for name in names:
+                    def call(fn=fns[name], name=name):
+                        err = fn(args, stream)
+                        if err != 0:
+                            raise RuntimeError(f"variant {name}: CUDA error "
+                                               f"{err}")
+                    print(json.dumps({
+                        "variant": name, "shape": list(shape),
+                        "dtype": str(dtype).split(".")[-1],
+                        "key_tiled": force == 1,
+                        "device_ms": device_ms(call), "card": card}),
+                        flush=True)
     return 0
 
 
