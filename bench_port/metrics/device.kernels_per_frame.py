@@ -1,0 +1,9 @@
+"""CUDA kernels per compute frame, counted in the profiler's trace of the
+traced compute frames (copies and memsets are not kernels)."""
+
+
+def read(run):
+    t = run.traced
+    if t is None or not t.units:
+        return None
+    return t.kernel_count() / t.units
