@@ -1,0 +1,11 @@
+"""Self time of the model's ``model.encoders`` spans per traced compute
+frame (host time, the ATen calls they make included)."""
+
+from bench_port import spans
+
+
+def read(run):
+    t = run.traced
+    if not spans.has_root(t, "model.forward_ego"):
+        return None
+    return spans.per_unit_ms(t, spans.self_s(t, "model.encoders"))

@@ -223,16 +223,20 @@ def test_port_agent_drives_with_the_cli_export(trained):
 
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
-    from transfuser_torch.train.profiling import StepTimer, profile_trace
+    """The operator's exporter: the program's spans are in ``trace.json``,
+    each around the ATen work it made."""
+    from transfuser_torch.tracing import profile_trace, span
 
-    timer = StepTimer()
     with profile_trace(str(tmp_path)):
         for _ in range(3):
-            with timer.stage("step"):
+            with span("train.step"):
                 torch.ones(64, 64).matmul(torch.ones(64, 64))
-    trace = json.loads((tmp_path / "trace.json").read_text())
-    assert trace["traceEvents"]
-    summary = timer.summary()
-    assert summary["step_p50_ms"] > 0 and timer.throughput("step", 2) > 0
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    steps = [e for e in events if e.get("name") == "train.step"]
+    assert len(steps) == 3
+    for s in steps:
+        inside = [e for e in events if e.get("name") == "aten::matmul"
+                  and s["ts"] <= e["ts"] <= s["ts"] + s["dur"]]
+        assert len(inside) == 1
     with profile_trace(None):  # off: no trace, no error
         pass

@@ -81,6 +81,7 @@ from ..sim.types import VehicleControl
 from ..train.checkpoint import (CONFIG_SNAPSHOT, list_ensemble_weights,
                                 load_inference_weights)
 from ..train.jax_import import load_reference_checkpoint, state_dict_from_jax
+from ..tracing import span
 from .base import AutonomousAgent, Track
 
 _SCALARS = 16  # bytes at the head of the packed frame: tp x, tp y, speed
@@ -251,34 +252,36 @@ class HybridAgent(AutonomousAgent):
         """The frame's inputs into the slot's pinned host buffer, once the
         slot's last upload has been read. ``geo``: geometric_fusion's
         (bev_points, cam_points)."""
-        if self._done[slot] is not None:
-            self._done[slot].synchronize()
-        o = self._offsets
-        host = self._host[slot].numpy()
-        scal = np.zeros(_SCALARS // 4, np.float32)
-        scal[:2] = target_point
-        scal[2] = speed
-        host[o[0]:o[1]] = scal.view(np.uint8)
-        host[o[1]:o[2]] = rgb.reshape(-1)
-        host[o[2]:o[3]] = lidar.reshape(-1)
-        host[o[3]:o[4]] = tpi.reshape(-1)
-        for j, pts in enumerate(geo):
-            host[o[4 + j]:o[5 + j]] = pts.reshape(-1)
+        with span("agent.pack"):
+            if self._done[slot] is not None:
+                self._done[slot].synchronize()
+            o = self._offsets
+            host = self._host[slot].numpy()
+            scal = np.zeros(_SCALARS // 4, np.float32)
+            scal[:2] = target_point
+            scal[2] = speed
+            host[o[0]:o[1]] = scal.view(np.uint8)
+            host[o[1]:o[2]] = rgb.reshape(-1)
+            host[o[2]:o[3]] = lidar.reshape(-1)
+            host[o[3]:o[4]] = tpi.reshape(-1)
+            for j, pts in enumerate(geo):
+                host[o[4 + j]:o[5 + j]] = pts.reshape(-1)
 
     def _forward(self, slot: int) -> torch.Tensor:
         """One packed upload of the slot, every member's forward_ego; the
         waypoints and boxes of all members flattened, on the device."""
         o = self._offsets
         dev = self._dev[slot]
-        dev.copy_(self._host[slot], non_blocking=True)
-        sc = dev[o[0]:o[1]].view(torch.float32)
-        rgb_d = dev[o[1]:o[2]].reshape(self._rgb_shape).to(torch.float32)
-        lidar_d = (dev[o[2]:o[3]].reshape(self._lidar_shape)
-                   .to(torch.float32) / LIDAR_HIST_MAX)
-        tpi_d = dev[o[3]:o[4]].reshape(self._tpi_shape).to(torch.float32)
-        tp_d, speed_d = sc[None, :2], sc[2:3]
-        geo_d = [dev[o[4 + j]:o[5 + j]].reshape(sh)
-                 for j, sh in enumerate(self._geo_shapes)]
+        with span("agent.upload"):
+            dev.copy_(self._host[slot], non_blocking=True)
+            sc = dev[o[0]:o[1]].view(torch.float32)
+            rgb_d = dev[o[1]:o[2]].reshape(self._rgb_shape).to(torch.float32)
+            lidar_d = (dev[o[2]:o[3]].reshape(self._lidar_shape)
+                       .to(torch.float32) / LIDAR_HIST_MAX)
+            tpi_d = dev[o[3]:o[4]].reshape(self._tpi_shape).to(torch.float32)
+            tp_d, speed_d = sc[None, :2], sc[2:3]
+            geo_d = [dev[o[4 + j]:o[5 + j]].reshape(sh)
+                     for j, sh in enumerate(self._geo_shapes)]
         outs = []
         for model in self.members:
             wp, boxes, _labels = model.forward_ego(rgb_d, lidar_d, tp_d,
@@ -305,7 +308,10 @@ class HybridAgent(AutonomousAgent):
         """The reference's timing: pack, forward and the one device->host
         copy, which waits for the device."""
         self._pack(0, *frame)
-        return self._split(self._forward(0).cpu().numpy())
+        flat = self._forward(0)
+        with span("agent.readback"):
+            flat = flat.cpu().numpy()
+        return self._split(flat)
 
     def _dispatch(self, slot: int) -> int:
         """The packed slot's forward, its outputs copied back into the
@@ -323,8 +329,9 @@ class HybridAgent(AutonomousAgent):
 
     def _fetch(self, slot: int) -> Tuple[np.ndarray, np.ndarray]:
         """The slot's outputs, after waiting on its event alone."""
-        if self._done[slot] is not None:
-            self._done[slot].synchronize()
+        with span("agent.readback"):
+            if self._done[slot] is not None:
+                self._done[slot].synchronize()
         return self._split(self._out[slot].numpy())
 
     def _next_slot(self) -> int:
@@ -440,6 +447,10 @@ class HybridAgent(AutonomousAgent):
 
     # ------------------------------------------------------------- run_step
     def run_step(self, input_data: Dict, timestamp: float) -> VehicleControl:
+        with span("agent.run_step"):
+            return self._run_step(input_data)
+
+    def _run_step(self, input_data: Dict) -> VehicleControl:
         self.step += 1
         cfg = self.config
         ctrl = cfg.controller
@@ -447,7 +458,8 @@ class HybridAgent(AutonomousAgent):
             self._init()
 
         repeat = self.step % ctrl.action_repeat == 1
-        tick_data = self.tick(input_data, lite=repeat)
+        with span("agent.tick"):
+            tick_data = self.tick(input_data, lite=repeat)
 
         # action repeat: reuse the previous action on odd frames
         if repeat:
@@ -456,8 +468,49 @@ class HybridAgent(AutonomousAgent):
                                    tick_data["compass"], tick_data["speed"])
             return self.control
 
-        # model inputs, packed as uint8 (camera pixels are uint8 at the
-        # source and the histogram takes values k/5, so packing is exact)
+        with span("agent.inputs"):
+            frame, is_stuck = self._inputs(tick_data)
+        if ctrl.async_inference or ctrl.pipelined_fetch:
+            slot = self._next_slot()
+            self._pack(slot, *frame)
+            if ctrl.async_inference:
+                if self._worker is None:
+                    self._worker = self._start_worker()
+                out = self._worker.submit(slot)
+            else:
+                pending, self._pending = self._pending, self._dispatch(slot)
+                out = None if pending is None else self._fetch(pending)
+            if out is None:  # pipeline priming: hold the last control
+                self.gps_buffer.update(
+                    self.control.steer, self.control.throttle,
+                    self.control.brake > 0.5, tick_data["compass"],
+                    tick_data["speed"])
+                return self.control
+            wp, boxes = out
+        else:
+            wp, boxes = self._infer(*frame)
+
+        # ensemble fusion
+        pred_wp = wp.mean(axis=0)[0]   # mean over members
+        with span("agent.boxes"):
+            member_boxes = [self._metric_boxes(boxes[m, 0])
+                            for m in range(self.model_count)]
+            fused_boxes = non_maximum_suppression(member_boxes,
+                                                  ctrl.iou_threshold_nms)
+        self.bb_buffer.append(fused_boxes)
+        self.pred_wp = pred_wp
+
+        with span("agent.control"):
+            self.control = self._control(pred_wp, fused_boxes, tick_data,
+                                         is_stuck)
+        return self.control
+
+    def _inputs(self, tick_data: Dict[str, Any]) -> Tuple[tuple, bool]:
+        """The frame's model inputs, packed as uint8 (camera pixels are
+        uint8 at the source and the histogram takes values k/5, so packing
+        is exact), and whether the creep logic holds this frame."""
+        cfg = self.config
+        ctrl = cfg.controller
         rgb = np.asarray(tick_data["rgb"])
         if rgb.dtype != np.uint8:
             rgb = np.round(rgb).astype(np.uint8)
@@ -489,36 +542,15 @@ class HybridAgent(AutonomousAgent):
                         lidar_cam_correspondences(tick_data["lidar"][:, :3]))
         frame = (rgb, lidar_bev, tp_image, target_point, tick_data["speed"],
                  geo)
-        if ctrl.async_inference or ctrl.pipelined_fetch:
-            slot = self._next_slot()
-            self._pack(slot, *frame)
-            if ctrl.async_inference:
-                if self._worker is None:
-                    self._worker = self._start_worker()
-                out = self._worker.submit(slot)
-            else:
-                pending, self._pending = self._pending, self._dispatch(slot)
-                out = None if pending is None else self._fetch(pending)
-            if out is None:  # pipeline priming: hold the last control
-                self.gps_buffer.update(
-                    self.control.steer, self.control.throttle,
-                    self.control.brake > 0.5, tick_data["compass"],
-                    tick_data["speed"])
-                return self.control
-            wp, boxes = out
-        else:
-            wp, boxes = self._infer(*frame)
+        return frame, is_stuck
 
-        # ensemble fusion
-        pred_wp = wp.mean(axis=0)[0]   # mean over members
-        member_boxes = [self._metric_boxes(boxes[m, 0])
-                        for m in range(self.model_count)]
-        fused_boxes = non_maximum_suppression(member_boxes,
-                                              ctrl.iou_threshold_nms)
-        self.bb_buffer.append(fused_boxes)
-        self.pred_wp = pred_wp
-
-        # control
+    def _control(self, pred_wp: np.ndarray, fused_boxes: list,
+                 tick_data: Dict[str, Any], is_stuck: bool
+                 ) -> VehicleControl:
+        """PID on the fused waypoints, the stuck logic, the safety box; the
+        GPS buffer rolled forward with the control applied."""
+        cfg = self.config
+        ctrl = cfg.controller
         steer, throttle, brake = control_pid(
             pred_wp, tick_data["speed"], self.turn_controller,
             self.speed_controller, ctrl, is_stuck=is_stuck,
@@ -550,7 +582,6 @@ class HybridAgent(AutonomousAgent):
                 control = VehicleControl(steer=float(steer), throttle=0.0,
                                          brake=1.0)
 
-        self.control = control
         self.gps_buffer.update(control.steer, control.throttle,
                                control.brake > 0.5, tick_data["compass"],
                                tick_data["speed"])

@@ -24,6 +24,7 @@ import torch.nn as nn
 from ..config import GlobalConfig
 from ..ops.image_ops import (adaptive_avg_pool_nchw, global_avg_pool_nchw,
                              normalize_imagenet_nchw, resize_bilinear_nchw)
+from ..tracing import span
 from .decoders import make_top_down_convs, top_down
 from .layers import Conv2d, Linear
 from .transfuser import ImageEncoder, LidarEncoder
@@ -120,43 +121,48 @@ class GeometricFusionBackbone(nn.Module):
         def project(mlp, x):  # channels-last MLP on an NCHW map
             return mlp(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
-        x_img = img_enc.stem(normalize_imagenet_nchw(image))
-        x_lid = lid_enc.stem(lidar_bev)
+        with span("model.encoders"):
+            x_img = img_enc.stem(normalize_imagenet_nchw(image))
+            x_lid = lid_enc.stem(lidar_bev)
         for i in range(4):
-            x_img = img_enc.stage(i, x_img)
-            x_lid = lid_enc.stage(i, x_lid)
+            with span("model.encoders"):
+                x_img = img_enc.stage(i, x_img)
+                x_lid = lid_enc.stage(i, x_lid)
             if i not in self.scales:
                 continue
             s = i + 1
-            img_embd = adaptive_avg_pool_nchw(
-                getattr(self, f"image_conv{s}")(x_img), img_anchors)
-            lid_embd = adaptive_avg_pool_nchw(
-                getattr(self, f"lidar_conv{s}")(x_lid), lidar_anchors)
+            with span("model.fusion"):
+                img_embd = adaptive_avg_pool_nchw(
+                    getattr(self, f"image_conv{s}")(x_img), img_anchors)
+                lid_embd = adaptive_avg_pool_nchw(
+                    getattr(self, f"lidar_conv{s}")(x_lid), lidar_anchors)
 
-            # image -> BEV
-            bev = project(getattr(self, f"image_projection{s}"),
-                          gather_correspondences(img_embd, bev_points))
-            bev = resize_bilinear_nchw(bev, x_lid.shape[2:])
-            x_lid = x_lid + getattr(self, f"lidar_deconv{s}")(bev)
+                # image -> BEV
+                bev = project(getattr(self, f"image_projection{s}"),
+                              gather_correspondences(img_embd, bev_points))
+                bev = resize_bilinear_nchw(bev, x_lid.shape[2:])
+                x_lid = x_lid + getattr(self, f"lidar_deconv{s}")(bev)
 
-            # BEV -> image
-            cam = project(getattr(self, f"lidar_projection{s}"),
-                          gather_correspondences(lid_embd, cam_points))
-            cam = resize_bilinear_nchw(cam, x_img.shape[2:])
-            x_img = x_img + getattr(self, f"image_deconv{s}")(cam)
+                # BEV -> image
+                cam = project(getattr(self, f"lidar_projection{s}"),
+                              gather_correspondences(lid_embd, cam_points))
+                cam = resize_bilinear_nchw(cam, x_img.shape[2:])
+                x_img = x_img + getattr(self, f"image_deconv{s}")(cam)
 
-            if mcfg.use_velocity:
-                vel = getattr(self, f"vel_emb{s}")(
-                    velocity.reshape(-1, 1).to(x_img.dtype))[:, :, None, None]
-                x_lid = x_lid + vel
-                x_img = x_img + vel
+                if mcfg.use_velocity:
+                    vel = getattr(self, f"vel_emb{s}")(
+                        velocity.reshape(-1, 1).to(x_img.dtype)
+                    )[:, :, None, None]
+                    x_lid = x_lid + vel
+                    x_img = x_img + vel
 
-        if self.change_channel_conv_image is not None:
-            x_img = self.change_channel_conv_image(x_img)
-            x_lid = self.change_channel_conv_lidar(x_lid)
+        with span("model.outputs"):
+            if self.change_channel_conv_image is not None:
+                x_img = self.change_channel_conv_image(x_img)
+                x_lid = self.change_channel_conv_lidar(x_lid)
 
-        fused = global_avg_pool_nchw(x_img) + global_avg_pool_nchw(x_lid)
-        pyramid = top_down(self.c5_conv, self.up_conv5, self.up_conv4,
-                           self.up_conv3, x_lid,
-                           self.config.bev.bev_upsample_factor)
+            fused = global_avg_pool_nchw(x_img) + global_avg_pool_nchw(x_lid)
+            pyramid = top_down(self.c5_conv, self.up_conv5, self.up_conv4,
+                               self.up_conv3, x_lid,
+                               self.config.bev.bev_upsample_factor)
         return pyramid, x_img, fused

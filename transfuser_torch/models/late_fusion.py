@@ -14,6 +14,7 @@ import torch.nn as nn
 
 from ..config import GlobalConfig
 from ..ops.image_ops import global_avg_pool_nchw, normalize_imagenet_nchw
+from ..tracing import span
 from .decoders import make_top_down_convs, top_down
 from .layers import Conv2d, LayerNorm, Linear
 from .transfuser import ImageEncoder, LidarEncoder
@@ -56,27 +57,32 @@ class LateFusionBackbone(nn.Module):
                 gen: Optional[torch.Generator] = None):
         """image (B,3,H,W) in [0,255], lidar_bev (B,C,H,W), both in the
         compute dtype; ``gen`` is unused (no dropout here)."""
-        x_img = self.image_encoder.features(normalize_imagenet_nchw(image))
-        if self.reduce_channels_conv_image is not None:
-            x_img = self.reduce_channels_conv_image(x_img)
-        img_vec = global_avg_pool_nchw(x_img)
-        if self.norm_after_pool_img is not None:
-            img_vec = self.norm_after_pool_img(img_vec)
+        with span("model.encoders"):
+            x_img = self.image_encoder.features(
+                normalize_imagenet_nchw(image))
+            x_lid = self.lidar_encoder._model(lidar_bev)
 
-        x_lid = self.lidar_encoder._model(lidar_bev)
-        if self.reduce_channels_conv_lidar is not None:
-            x_lid = self.reduce_channels_conv_lidar(x_lid)
-        pyramid = top_down(self.c5_conv, self.up_conv5, self.up_conv4,
-                           self.up_conv3, x_lid,
-                           self.config.bev.bev_upsample_factor)
-        lid_vec = global_avg_pool_nchw(x_lid)
-        if self.norm_after_pool_lidar is not None:
-            lid_vec = self.norm_after_pool_lidar(lid_vec)
+        with span("model.outputs"):
+            if self.reduce_channels_conv_image is not None:
+                x_img = self.reduce_channels_conv_image(x_img)
+            img_vec = global_avg_pool_nchw(x_img)
+            if self.norm_after_pool_img is not None:
+                img_vec = self.norm_after_pool_img(img_vec)
 
-        fused = img_vec + lid_vec
-        if self.vel_emb is not None:
-            if velocity is None:
-                raise ValueError("use_velocity needs velocity")
-            fused = fused + self.vel_emb(
-                velocity.reshape(-1, 1).to(fused.dtype))
+            if self.reduce_channels_conv_lidar is not None:
+                x_lid = self.reduce_channels_conv_lidar(x_lid)
+            pyramid = top_down(self.c5_conv, self.up_conv5, self.up_conv4,
+                               self.up_conv3, x_lid,
+                               self.config.bev.bev_upsample_factor)
+            lid_vec = global_avg_pool_nchw(x_lid)
+            if self.norm_after_pool_lidar is not None:
+                lid_vec = self.norm_after_pool_lidar(lid_vec)
+
+        with span("model.fusion"):
+            fused = img_vec + lid_vec
+            if self.vel_emb is not None:
+                if velocity is None:
+                    raise ValueError("use_velocity needs velocity")
+                fused = fused + self.vel_emb(
+                    velocity.reshape(-1, 1).to(fused.dtype))
         return pyramid, x_img, fused

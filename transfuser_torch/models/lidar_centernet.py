@@ -32,6 +32,7 @@ import torch.nn as nn
 from ..config import GlobalConfig
 from ..ops import centernet as cn
 from ..ops.image_ops import resize_bilinear, to_nchw, to_nhwc
+from ..tracing import span
 from .decoders import DepthDecoder, SegDecoder
 from .encoders import ConvNeXtBlock
 from .geometric_fusion import GeometricFusionBackbone
@@ -117,10 +118,11 @@ class LidarCenterNet(nn.Module):
         if cfg.model.point_pillars.use_point_pillars:
             if num_points is None:
                 raise ValueError("PointPillars needs num_points")
-            canvas = self.point_pillar_net(lidar_bev, num_points, dt)
-            # rot90(k=-1) over H, W: the voxelization's orientation
-            # (model.py:690)
-            lidar = to_nchw(torch.rot90(canvas, k=-1, dims=(1, 2)))
+            with span("model.pillars"):
+                canvas = self.point_pillar_net(lidar_bev, num_points, dt)
+                # rot90(k=-1) over H, W: the voxelization's orientation
+                # (model.py:690)
+                lidar = to_nchw(torch.rot90(canvas, k=-1, dims=(1, 2)))
         else:
             lidar = to_nchw(lidar_bev).to(dt)
         if cfg.model.use_target_point_image:
@@ -133,22 +135,24 @@ class LidarCenterNet(nn.Module):
         else:
             pyramid, image_grid, fused = self._model(
                 to_nchw(rgb).to(dt), lidar, velocity, gen)
-        pred_wp = waypoint_rollout(
-            self.join, self.decoder, self.output, fused, target_point,
-            cfg.model.pred_len, cfg.model.gru_concat_target_point,
-            cfg.sensors.lidar_pos[0])
-        out = {"pred_wp": pred_wp}
-        for name, v in self.head(pyramid[0]).items():
-            out[f"head_{name}"] = to_nhwc(v)
-        if compute_aux:
-            # model.py:760 resizes with align_corners=True
-            out["pred_bev"] = resize_bilinear(
-                to_nhwc(self.pred_bev(pyramid[0])),
-                (cfg.bev.bev_resolution_height, cfg.bev.bev_resolution_width),
-                align_corners=True)
-            if cfg.model.multitask:
-                out["pred_semantic"] = to_nhwc(self.seg_decoder(image_grid))
-                out["pred_depth"] = self.depth_decoder(image_grid)
+        with span("model.outputs"):
+            pred_wp = waypoint_rollout(
+                self.join, self.decoder, self.output, fused, target_point,
+                cfg.model.pred_len, cfg.model.gru_concat_target_point,
+                cfg.sensors.lidar_pos[0])
+            out = {"pred_wp": pred_wp}
+            for name, v in self.head(pyramid[0]).items():
+                out[f"head_{name}"] = to_nhwc(v)
+            if compute_aux:
+                # model.py:760 resizes with align_corners=True
+                out["pred_bev"] = resize_bilinear(
+                    to_nhwc(self.pred_bev(pyramid[0])),
+                    (cfg.bev.bev_resolution_height,
+                     cfg.bev.bev_resolution_width), align_corners=True)
+                if cfg.model.multitask:
+                    out["pred_semantic"] = to_nhwc(
+                        self.seg_decoder(image_grid))
+                    out["pred_depth"] = self.depth_decoder(image_grid)
         return out
 
     @torch.no_grad()
@@ -163,20 +167,23 @@ class LidarCenterNet(nn.Module):
         boxes, in eval mode whatever the module's mode. Returns (pred_wp
         (B,4,2), boxes (B,k,8), labels (B,k)); confidence filtering is
         left to the host-side agent."""
-        was_training = self.training
-        self.eval()
-        try:
-            out = self(rgb, lidar_bev, target_point, target_point_image,
-                       velocity, bev_points, cam_points, num_points)
-        finally:
-            self.train(was_training)
-        cnc = self.config.model.centernet
-        decoded = cn.decode_heatmap(
-            out["head_heatmap"], out["head_wh"], out["head_offset"],
-            out["head_yaw_class"], out["head_yaw_res"], out["head_velocity"],
-            out["head_brake"], k=cnc.top_k_center_keypoints,
-            kernel=cnc.center_net_max_pooling_kernel,
-            num_dir_bins=cnc.num_dir_bins)
+        with span("model.forward_ego"):
+            was_training = self.training
+            self.eval()
+            try:
+                out = self(rgb, lidar_bev, target_point, target_point_image,
+                           velocity, bev_points, cam_points, num_points)
+            finally:
+                self.train(was_training)
+            cnc = self.config.model.centernet
+            with span("model.decode"):
+                decoded = cn.decode_heatmap(
+                    out["head_heatmap"], out["head_wh"], out["head_offset"],
+                    out["head_yaw_class"], out["head_yaw_res"],
+                    out["head_velocity"], out["head_brake"],
+                    k=cnc.top_k_center_keypoints,
+                    kernel=cnc.center_net_max_pooling_kernel,
+                    num_dir_bins=cnc.num_dir_bins)
         return out["pred_wp"], decoded.boxes, decoded.labels
 
 

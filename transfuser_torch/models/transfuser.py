@@ -19,6 +19,7 @@ from ..ops.image_ops import (adaptive_avg_pool_nchw, global_avg_pool_nchw,
 from .decoders import make_top_down_convs, top_down
 from .encoders import make_encoder
 from .gpt import GPTFusion
+from ..tracing import span
 from .layers import Conv2d
 
 
@@ -86,26 +87,30 @@ class TransfuserBackbone(nn.Module):
         img_enc = self.image_encoder.features
         lid_enc = self.lidar_encoder._model
 
-        x_img = img_enc.stem(normalize_imagenet_nchw(image))
-        x_lid = lid_enc.stem(lidar_bev)
+        with span("model.encoders"):
+            x_img = img_enc.stem(normalize_imagenet_nchw(image))
+            x_lid = lid_enc.stem(lidar_bev)
         for i in range(4):
-            x_img = img_enc.stage(i, x_img)
-            x_lid = lid_enc.stage(i, x_lid)
-            img_out, lid_out = getattr(self, f"transformer{i + 1}")(
-                to_nhwc(adaptive_avg_pool_nchw(x_img, img_anchors)),
-                to_nhwc(adaptive_avg_pool_nchw(x_lid, lidar_anchors)),
-                velocity, gen)
-            x_img = x_img + resize_bilinear_nchw(to_nchw(img_out),
-                                                 x_img.shape[2:])
-            x_lid = x_lid + resize_bilinear_nchw(to_nchw(lid_out),
-                                                 x_lid.shape[2:])
+            with span("model.encoders"):
+                x_img = img_enc.stage(i, x_img)
+                x_lid = lid_enc.stage(i, x_lid)
+            with span("model.fusion"):
+                img_out, lid_out = getattr(self, f"transformer{i + 1}")(
+                    to_nhwc(adaptive_avg_pool_nchw(x_img, img_anchors)),
+                    to_nhwc(adaptive_avg_pool_nchw(x_lid, lidar_anchors)),
+                    velocity, gen)
+                x_img = x_img + resize_bilinear_nchw(to_nchw(img_out),
+                                                     x_img.shape[2:])
+                x_lid = x_lid + resize_bilinear_nchw(to_nchw(lid_out),
+                                                     x_lid.shape[2:])
 
-        if self.change_channel_conv_image is not None:
-            x_img = self.change_channel_conv_image(x_img)
-            x_lid = self.change_channel_conv_lidar(x_lid)
+        with span("model.outputs"):
+            if self.change_channel_conv_image is not None:
+                x_img = self.change_channel_conv_image(x_img)
+                x_lid = self.change_channel_conv_lidar(x_lid)
 
-        fused = global_avg_pool_nchw(x_img) + global_avg_pool_nchw(x_lid)
-        pyramid = top_down(self.c5_conv, self.up_conv5, self.up_conv4,
-                           self.up_conv3, x_lid,
-                           self.config.bev.bev_upsample_factor)
+            fused = global_avg_pool_nchw(x_img) + global_avg_pool_nchw(x_lid)
+            pyramid = top_down(self.c5_conv, self.up_conv5, self.up_conv4,
+                               self.up_conv3, x_lid,
+                               self.config.bev.bev_upsample_factor)
         return pyramid, x_img, fused

@@ -53,6 +53,7 @@ from typing import Dict
 
 import torch
 
+from ..tracing import span
 from . import flops, kernels
 from .dtypes import acc_dtype
 
@@ -255,20 +256,22 @@ def _forward(q, k, v, force: int) -> torch.Tensor:
             return reference_attention(q, k, v)
     if dev.type != "cuda":
         raise ValueError(f"attention runs on CUDA or CPU, not {dev}")
-    _check(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
-        raise RuntimeError(
-            "the attention kernel is forward only (the Pallas kernel has no "
-            "VJP either): call it under torch.no_grad(), or train with "
-            "attn_pdrop > 0, which takes the explicit-probabilities branch")
-    if q.numel() == 0:
-        return torch.empty_like(q)
-    q, k, v, out = _layout(q, k, v, force)
-    err = kernels.call(
-        kernels.function("attention", "tf_attention_forward", _ARGTYPES),
-        dev, _pack([_view(x) for x in (q, k, v, out)], q.shape, q.dtype,
-                   force))
+    with span("kernels.attention"):
+        _check(q, k, v)
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise RuntimeError(
+                "the attention kernel is forward only (the Pallas kernel has "
+                "no VJP either): call it under torch.no_grad(), or train "
+                "with attn_pdrop > 0, which takes the explicit-probabilities "
+                "branch")
+        if q.numel() == 0:
+            return torch.empty_like(q)
+        q, k, v, out = _layout(q, k, v, force)
+        err = kernels.call(
+            kernels.function("attention", "tf_attention_forward", _ARGTYPES),
+            dev, _pack([_view(x) for x in (q, k, v, out)], q.shape, q.dtype,
+                       force))
     if err != 0:
         forced = ("", ", key-tiled", ", resident")[force]
         raise RuntimeError(f"attention kernel launch failed: CUDA error "

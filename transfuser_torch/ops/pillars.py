@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from ..tracing import span
 from . import kernels
 
 NEG_INF = -1e30
@@ -108,16 +109,18 @@ def _segment_max_forward(values: torch.Tensor, segment_ids: torch.Tensor,
     if values.device.type != "cuda":
         raise ValueError(f"segment_max runs on CUDA or CPU, not "
                          f"{values.device}")
-    _check(values, segment_ids, num_segments)
-    fn = kernels.function("scatter_max", "tf_scatter_max_forward", _ARGTYPES)
-    n, c = values.shape
-    # the canvas, then the kernel's touched-cell bitmap (one bit per cell)
-    buf = torch.empty(num_segments * c + (num_segments + 31) // 32,
-                      dtype=values.dtype, device=values.device)
-    out = buf[:num_segments * c].view(num_segments, c)
-    args = (values.data_ptr(), segment_ids.data_ptr(), buf.data_ptr(), n, c,
-            num_segments)
-    err = kernels.call(fn, values.device, *args)
+    with span("kernels.scatter_max"):
+        _check(values, segment_ids, num_segments)
+        fn = kernels.function("scatter_max", "tf_scatter_max_forward",
+                              _ARGTYPES)
+        n, c = values.shape
+        # the canvas, then the kernel's touched-cell bitmap (one bit a cell)
+        buf = torch.empty(num_segments * c + (num_segments + 31) // 32,
+                          dtype=values.dtype, device=values.device)
+        out = buf[:num_segments * c].view(num_segments, c)
+        args = (values.data_ptr(), segment_ids.data_ptr(), buf.data_ptr(), n,
+                c, num_segments)
+        err = kernels.call(fn, values.device, *args)
     if err != 0:
         raise RuntimeError(f"scatter-max kernel launch failed: CUDA error "
                            f"{err} at N={n}, C={c}, S={num_segments}")

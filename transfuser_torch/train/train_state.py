@@ -48,6 +48,7 @@ from ..config import GlobalConfig
 from ..parallel import comm
 from ..parallel.sharding import (Mesh, TensorParallel, gather_tensor,
                                  shard_tensor, zero_plan)
+from ..tracing import span
 
 Schedule = Callable[[int], float]
 
@@ -237,45 +238,47 @@ class AdamW:
         self.step_count = int(state["step_count"])
 
     def clipped_grads(self) -> List[torch.Tensor]:
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        group = None if self.tp is None else self.tp.group
-        dims = self.shard_dims if self.tp is not None else None
-        if self.agc_clip > 0:
-            grads = adaptive_grad_clip(grads, self.params, self.agc_clip,
-                                       shard_dims=dims, group=group)
-        if self.grad_clip_norm > 0:
-            grads = clip_by_global_norm(grads, self.grad_clip_norm,
-                                        shard_dims=dims, group=group)
+        with span("train.clip"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self.params]
+            group = None if self.tp is None else self.tp.group
+            dims = self.shard_dims if self.tp is not None else None
+            if self.agc_clip > 0:
+                grads = adaptive_grad_clip(grads, self.params, self.agc_clip,
+                                           shard_dims=dims, group=group)
+            if self.grad_clip_norm > 0:
+                grads = clip_by_global_norm(grads, self.grad_clip_norm,
+                                            shard_dims=dims, group=group)
         return grads
 
     @torch.no_grad()
     def step(self) -> None:
         grads = self.clipped_grads()
-        lr = self.schedule(self.step_count)
-        self.step_count += 1
-        b1, b2 = self.b1, self.b2
-        own = self.owned
-        params = [self.params[i] for i in own]
-        grads = [grads[i] for i in own]
-        mu = [self.mu[i] for i in own]
-        nu = [self.nu[i] for i in own]
-        # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(
-            torch._foreach_mul(grads, grads), 1 - b2))
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** self.step_count)
-        nu_hat = torch._foreach_div(nu, 1 - b2 ** self.step_count)
-        denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
-        update = torch._foreach_div(mu_hat, denom)
-        if self.weight_decay:
-            torch._foreach_add_(update, torch._foreach_mul(
-                params, self.weight_decay))
-        torch._foreach_add_(params, torch._foreach_mul(update, -lr))
-        if self.zero:
-            self._broadcast_from_owners(self.params)
+        with span("train.update"):
+            lr = self.schedule(self.step_count)
+            self.step_count += 1
+            b1, b2 = self.b1, self.b2
+            own = self.owned
+            params = [self.params[i] for i in own]
+            grads = [grads[i] for i in own]
+            mu = [self.mu[i] for i in own]
+            nu = [self.nu[i] for i in own]
+            # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - b2))
+            mu_hat = torch._foreach_div(mu, 1 - b1 ** self.step_count)
+            nu_hat = torch._foreach_div(nu, 1 - b2 ** self.step_count)
+            denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
+            update = torch._foreach_div(mu_hat, denom)
+            if self.weight_decay:
+                torch._foreach_add_(update, torch._foreach_mul(
+                    params, self.weight_decay))
+            torch._foreach_add_(params, torch._foreach_mul(update, -lr))
+            if self.zero:
+                self._broadcast_from_owners(self.params)
 
 
 def make_optimizer(params: Iterable[torch.Tensor], config: GlobalConfig,

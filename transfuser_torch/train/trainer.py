@@ -45,6 +45,7 @@ from ..config import GlobalConfig
 from ..data.pack import unpack_batch
 from ..models import LidarCenterNet
 from ..parallel.sharding import Mesh, shard_model
+from ..tracing import span
 from .losses import compute_losses, global_losses, total_loss
 from .metrics import eval_metrics
 from .train_state import AdamW, make_optimizer
@@ -81,18 +82,22 @@ def make_train_step(model: torch.nn.Module, config: GlobalConfig,
     stream = 0 if mesh is None else mesh.data_index << 48
 
     def train_step(batch: Batch) -> Batch:
-        batch = unpack_batch(batch)
-        model.train()
-        gen = torch.Generator(device=device).manual_seed(
-            seed * 2 ** 32 + optimizer.step_count + stream)
-        args, extra = _model_inputs(batch)
-        out = model(*args, **extra, compute_aux=True, gen=gen)
-        detailed = compute_losses(out, batch, config, group)
-        loss = total_loss(detailed, config)
-        optimizer.zero_grad()
-        loss.backward()
-        optimizer.step()
-        return global_losses({"loss_total": loss, **detailed}, group)
+        with span("train.step"):
+            with span("train.forward"):
+                batch = unpack_batch(batch)
+                model.train()
+                gen = torch.Generator(device=device).manual_seed(
+                    seed * 2 ** 32 + optimizer.step_count + stream)
+                args, extra = _model_inputs(batch)
+                out = model(*args, **extra, compute_aux=True, gen=gen)
+            with span("train.losses"):
+                detailed = compute_losses(out, batch, config, group)
+                loss = total_loss(detailed, config)
+            with span("train.backward"):
+                optimizer.zero_grad()
+                loss.backward()
+            optimizer.step()
+            return global_losses({"loss_total": loss, **detailed}, group)
 
     return train_step
 
