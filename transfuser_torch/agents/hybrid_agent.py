@@ -20,10 +20,13 @@ pixels, LiDAR hit counts 0..5, target-point raster, the three float32
 scalars and, under geometric_fusion, the frame's correspondence grids:
 cell indices below 22), uploads it once through pinned memory, widens it
 on the device, runs every member's ``forward_ego`` in bf16 and brings the
-waypoints and boxes of all members back in one copy. latentTF lists no
-LiDAR sensor and reads none: its histogram is zeros (the model replaces it
-with a positional grid); geometric_fusion computes the correspondences on
-the host from the frame's cloud.
+waypoints and boxes of all members back in one copy. On the card each
+member replays its ``forward_ego`` from a CUDA graph from its second
+compute frame on (``models/ego_graphs.py``); members appended to
+``members`` after setup are opted in at their first frame. latentTF lists
+no LiDAR sensor and reads none: its histogram is zeros (the model replaces
+it with a positional grid); geometric_fusion computes the correspondences
+on the host from the frame's cloud.
 
 Timing modes (``ControllerConfig``, read on every frame, so a config
 swapped after ``setup`` holds):
@@ -284,6 +287,9 @@ class HybridAgent(AutonomousAgent):
                      for j, sh in enumerate(self._geo_shapes)]
         outs = []
         for model in self.members:
+            # the members' weights change only in place and the frame's
+            # shapes never change: each forward replays a CUDA graph
+            model.replay_forward_ego()
             wp, boxes, _labels = model.forward_ego(rgb_d, lidar_d, tp_d,
                                                    tpi_d, speed_d, *geo_d)
             outs += [wp.to(torch.float32).reshape(-1),

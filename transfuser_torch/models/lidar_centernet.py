@@ -34,6 +34,7 @@ from ..ops import centernet as cn
 from ..ops.image_ops import resize_bilinear, to_nchw, to_nhwc
 from ..tracing import span
 from .decoders import DepthDecoder, SegDecoder
+from .ego_graphs import EgoGraphs
 from .encoders import ConvNeXtBlock
 from .geometric_fusion import GeometricFusionBackbone
 from .heads import LidarCenterNetHead, bias_init_with_prob
@@ -62,6 +63,7 @@ class LidarCenterNet(nn.Module):
                              f"{', '.join(BACKBONES)}")
         self.config = config
         self.dtype = dtype
+        self._ego_graphs: Optional[EgoGraphs] = None
         pp = mcfg.point_pillars
         lidar_ch = (pp.num_features[-1] if pp.use_point_pillars
                     else 2 * mcfg.lidar_seq_len)
@@ -166,25 +168,57 @@ class LidarCenterNet(nn.Module):
         """Inference path (model.py:685-731): waypoints + decoded top-k
         boxes, in eval mode whatever the module's mode. Returns (pred_wp
         (B,4,2), boxes (B,k,8), labels (B,k)); confidence filtering is
-        left to the host-side agent."""
+        left to the host-side agent. After ``replay_forward_ego()``, CUDA
+        inputs run through a CUDA graph from their second call on, whose
+        replay skips the mode walks; the outputs are the caller's."""
+        args = (rgb, lidar_bev, target_point, target_point_image, velocity,
+                bev_points, cam_points, num_points)
         with span("model.forward_ego"):
-            was_training = self.training
-            self.eval()
-            try:
-                out = self(rgb, lidar_bev, target_point, target_point_image,
-                           velocity, bev_points, cam_points, num_points)
-            finally:
-                self.train(was_training)
-            cnc = self.config.model.centernet
-            with span("model.decode"):
-                decoded = cn.decode_heatmap(
-                    out["head_heatmap"], out["head_wh"], out["head_offset"],
-                    out["head_yaw_class"], out["head_yaw_res"],
-                    out["head_velocity"], out["head_brake"],
-                    k=cnc.top_k_center_keypoints,
-                    kernel=cnc.center_net_max_pooling_kernel,
-                    num_dir_bins=cnc.num_dir_bins)
+            if self._ego_graphs is not None:
+                return self._ego_graphs(self._forward_ego_eval, args,
+                                        self.dtype)
+            return self._forward_ego_eval(*args)
+
+    def _forward_ego_eval(self, *args):
+        was_training = self.training
+        self.eval()
+        try:
+            out = self(*args)
+        finally:
+            self.train(was_training)
+        cnc = self.config.model.centernet
+        with span("model.decode"):
+            decoded = cn.decode_heatmap(
+                out["head_heatmap"], out["head_wh"], out["head_offset"],
+                out["head_yaw_class"], out["head_yaw_res"],
+                out["head_velocity"], out["head_brake"],
+                k=cnc.top_k_center_keypoints,
+                kernel=cnc.center_net_max_pooling_kernel,
+                num_dir_bins=cnc.num_dir_bins)
         return out["pred_wp"], decoded.boxes, decoded.labels
+
+    def replay_forward_ego(self) -> None:
+        """Opt in to replaying ``forward_ego`` from CUDA graphs
+        (``models/ego_graphs.py``), for a caller whose weights change only
+        in place: a graph would ignore weights passed in for one call, as
+        ``torch.func.functional_call`` passes them. Does nothing to CPU
+        inputs. Idempotent."""
+        if self._ego_graphs is None:
+            self._ego_graphs = EgoGraphs()
+
+    def _apply(self, fn, recurse=True):
+        # a move gives the parameters new storage: the graphs read the old
+        if self._ego_graphs is not None:
+            self._ego_graphs.clear()
+        return super()._apply(fn, recurse)
+
+    def load_state_dict(self, state_dict, strict: bool = True,
+                        assign: bool = False):
+        # assign=True swaps the parameters; an in-place load needs nothing
+        if assign and self._ego_graphs is not None:
+            self._ego_graphs.clear()
+        return super().load_state_dict(state_dict, strict=strict,
+                                       assign=assign)
 
 
 @torch.no_grad()

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from ..ops.dtypes import at_least_f32
+from ..ops.dtypes import at_least_f32, constant
 from .layers import Linear
 
 
@@ -34,8 +34,7 @@ def waypoint_rollout(join: nn.Module, decoder: nn.GRUCell, output: nn.Module,
     the lidar frame (x shifted by -lidar_pos_x)."""
     z = join(at_least_f32(fused))
     dt = z.dtype
-    tp = target_point.to(dt) * torch.tensor([1.0, -1.0], dtype=dt,
-                                            device=z.device)
+    tp = target_point.to(dt) * constant((1.0, -1.0), dt, z.device)
     x = torch.zeros((z.shape[0], 2), dtype=dt, device=z.device)
     wps = []
     for _ in range(pred_len):
@@ -45,8 +44,7 @@ def waypoint_rollout(join: nn.Module, decoder: nn.GRUCell, output: nn.Module,
         wps.append(x)
     pred_wp = torch.stack(wps, dim=1)
     # vehicle frame -> lidar frame (model.py:639)
-    return pred_wp - torch.tensor([lidar_pos_x, 0.0], dtype=dt,
-                                  device=z.device)
+    return pred_wp - constant((float(lidar_pos_x), 0.0), dt, z.device)
 
 
 class WaypointGRU(nn.Module):

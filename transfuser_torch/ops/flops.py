@@ -86,6 +86,11 @@ class FlopCounter(TorchDispatchMode):
         return out
 
 
+def counting() -> bool:
+    """Whether a counter is active."""
+    return bool(_active)
+
+
 def count(name: str, flops: int) -> None:
     """Add ``flops`` under ``name`` to the innermost active counter, if any
     (a kernel wrapper's work by formula)."""

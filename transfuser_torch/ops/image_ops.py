@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import flops
+from .dtypes import constant
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -115,8 +116,8 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
 def _imagenet_consts(x: torch.Tensor, shape) -> Tuple[torch.Tensor, ...]:
     # constants rounded to x.dtype first, then scaled in it, as the JAX
     # package does
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device) * 255.0
+    mean = constant(tuple(IMAGENET_MEAN), x.dtype, x.device, 255.0)
+    std = constant(tuple(IMAGENET_STD), x.dtype, x.device, 255.0)
     return mean.reshape(shape), std.reshape(shape)
 
 
