@@ -35,7 +35,6 @@ import torch
 
 from .. import generate, harness, trace
 from ..reference import agent as ref_agent
-from ..reference import model as ref
 from ..weights import seeded_state_dict
 
 
@@ -87,7 +86,7 @@ def run(r: harness.Run) -> Outcome:
     from transfuser_torch.agents.hybrid_agent import HybridAgent
     from transfuser_torch.config import GlobalConfig
 
-    device = r.device
+    device, ref = r.device, r.ref
     mix = r.mix
     cfg = ref.namespace(r.config["config"])
     r.cfg = cfg
@@ -101,7 +100,8 @@ def run(r: harness.Run) -> Outcome:
             port_cfg, dtype=torch.bfloat16, device=device))
     agent.model_count = members
     for i, m in enumerate(agent.members):
-        sd = seeded_state_dict(cfg, harness.member_seed(r.seed, i), device)
+        sd = seeded_state_dict(ref, cfg, harness.member_seed(r.seed, i),
+                               device)
         m.load_state_dict(sd)
         del sd
     plan = generate.route_plan(mix)
@@ -204,7 +204,7 @@ def run(r: harness.Run) -> Outcome:
     r.host = {"run_step_s": float(np.sum(frame_s)),
               "forward_ego_s": float(np.sum(model_s))}
     from ..flops import forward_flops
-    r.flops_per_unit = forward_flops(cfg) * members
+    r.flops_per_unit = forward_flops(ref, cfg) * members
     if device.type == "cuda":
         r.memory_peak = torch.cuda.max_memory_allocated(device)
     harness.log(f"{r.units} compute frames in {r.window_s:.2f} s, p50 "
@@ -236,7 +236,7 @@ def compare(r: harness.Run, out: Outcome, control: bool = False
     the replay's, its waypoints and top box scores against the reference
     model's; or with ``control`` the reference model's in fp8 (put in the
     program's place) against its own in fp32."""
-    device = r.device
+    device, ref = r.device, r.ref
     cfg, frames, port = out.cfg, out.frames, out.port
     controls, pred_wps, fused = out.controls, out.pred_wps, out.fused
     n_frames = out.n_frames
@@ -288,10 +288,10 @@ def compare(r: harness.Run, out: Outcome, control: bool = False
         model = ref.build(cfg, device)
         for m in range(members):
             model.load_state_dict(seeded_state_dict(
-                cfg, harness.member_seed(r.seed, m), device))
+                ref, cfg, harness.member_seed(r.seed, m), device))
             for mode in modes:
-                outs[(m, mode)] = _reference_outputs(model, order, inputs,
-                                                     device, mode)
+                outs[(m, mode)] = _reference_outputs(ref, model, order,
+                                                     inputs, device, mode)
         del model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -312,7 +312,8 @@ def compare(r: harness.Run, out: Outcome, control: bool = False
             "score_gap": score_gap, "post_gap": post_gap}
 
 
-def _reference_outputs(model, order, inputs, device, mode, block=16):
+def _reference_outputs(ref, model, order, inputs, device, mode,
+                       block=16):
     """Waypoints (n, pred_len, 2) and the top box score (n,) of the
     sampled frames, in blocks of rows. The top score is the heatmap's
     maximum, a continuous function of the head's output; which peaks make

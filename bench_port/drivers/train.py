@@ -41,7 +41,6 @@ import numpy as np
 import torch
 
 from .. import generate, harness, trace
-from ..reference import model as ref
 from ..reference import train as ref_train
 from ..weights import seeded_state_dict
 
@@ -112,14 +111,14 @@ def run(r: harness.Run) -> Outcome:
     from transfuser_torch.config import GlobalConfig
     from transfuser_torch.train.trainer import Trainer
 
-    device = r.device
+    device, ref = r.device, r.ref
     mix = r.mix
     cfg = ref.namespace(r.config["config"])
     r.cfg = cfg
     port_cfg = GlobalConfig.from_json(json.dumps(r.config["config"]))
     trainer = Trainer(port_cfg, device=device)
     weights_seed = harness.member_seed(r.seed, 0)
-    trainer.model.load_state_dict(seeded_state_dict(cfg, weights_seed,
+    trainer.model.load_state_dict(seeded_state_dict(ref, cfg, weights_seed,
                                                      device))
     batches = generate.train_batches(cfg, mix, r.seed, device)
     step = trainer.train_step
@@ -163,7 +162,7 @@ def run(r: harness.Run) -> Outcome:
     batch = int(mix["batch"])
     r.e2e = {"train_samples_per_s": n * batch / r.window_s}
     from ..flops import train_step_flops
-    r.flops_per_unit = train_step_flops(cfg, batch)
+    r.flops_per_unit = train_step_flops(ref, cfg, batch)
     if device.type == "cuda":
         r.memory_peak = torch.cuda.max_memory_allocated(device)
     harness.log(f"{n} steps in {r.window_s:.2f} s: "
@@ -185,13 +184,13 @@ def compare(r: harness.Run, out: Outcome, control: bool = False
     """The numbers of both stretches: the program's against the
     reference's, or with ``control`` the reference's in fp8 (put in the
     program's place) against its own in fp32."""
-    cfg, device = out.cfg, r.device
+    cfg, device, ref = out.cfg, r.device, r.ref
     got: Dict[str, float] = {}
     with ref.plain_fp32():
         model = ref.build(cfg, device)
         stretches = (
-            ("", seeded_state_dict(cfg, out.weights_seed, device), None, 0,
-             0, out.first),
+            ("", seeded_state_dict(ref, cfg, out.weights_seed, device), None,
+             0, 0, out.first),
             ("after_", out.states[0], out.moments, out.count, out.at,
              out.after))
         for prefix, state, moments, count, at, program in stretches:

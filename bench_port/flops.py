@@ -3,7 +3,8 @@ on the meta device: the benchmark's own frozen copy of the formulas the
 port's ``ops/flops.py`` reads (PyTorch's ``flop_registry``, with the
 port's rule for a grouped convolution's backward). Two operations per
 multiply-add; elementwise work, normalisation, reductions, resizes and
-the optimizer count nothing.
+the optimizer count nothing. The model is the run's reference module's
+(``harness.reference``); its ``_resizing`` counter marks the resizes.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ from collections import defaultdict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from .reference import model as ref
 from .reference import train as ref_train
 
 aten = torch.ops.aten
@@ -66,9 +66,13 @@ FORMULAS = {
 
 
 class FlopCounter(TorchDispatchMode):
-    def __init__(self):
+    """Counts the operations run inside it; with ``ref``, none while that
+    reference module's resize runs (its ``_resizing`` counter)."""
+
+    def __init__(self, ref=None):
         super().__init__()
         self.counts = defaultdict(int)
+        self.resizing = [0] if ref is None else ref._resizing
 
     @property
     def total(self) -> int:
@@ -78,7 +82,7 @@ class FlopCounter(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         f = FORMULAS.get(func._overloadpacket)
-        if f is not None and not ref._resizing[0]:
+        if f is not None and not self.resizing[0]:
             self.counts[func._overloadpacket.__name__] += int(
                 f(*args, **kwargs, out=out))
         return out
@@ -110,20 +114,21 @@ def _meta_inputs(cfg, batch: int, train: bool):
     return x
 
 
-def forward_flops(cfg, batch: int = 1) -> int:
-    """One eval forward of the model (``forward_ego``'s network)."""
+def forward_flops(ref, cfg, batch: int = 1) -> int:
+    """One eval forward of the model that the reference module ``ref``
+    builds (``forward_ego``'s network)."""
     model = ref.build(cfg, "meta")
-    with FlopCounter() as c, torch.no_grad():
+    with FlopCounter(ref) as c, torch.no_grad():
         model(**ref_train.model_inputs(_meta_inputs(cfg, batch, False)))
     return c.total
 
 
-def train_step_flops(cfg, batch: int) -> int:
-    """One training step: forward with the auxiliary maps, the loss, and
-    the backward."""
+def train_step_flops(ref, cfg, batch: int) -> int:
+    """One training step of ``ref``'s model: forward with the auxiliary
+    maps, the loss, and the backward."""
     model = ref.build(cfg, "meta").train()
     x = _meta_inputs(cfg, batch, True)
-    with FlopCounter() as c:
+    with FlopCounter(ref) as c:
         out = model(**ref_train.model_inputs(x), compute_aux=True)
         ref_train.total(ref_train.losses(out, x, cfg), cfg).backward()
     return c.total

@@ -6,7 +6,12 @@ Layout, all under ``bench_port/``:
 
 * ``configs/<config>.json``: the configuration as run (``config``, the
   port's ``GlobalConfig`` tree), with ``source``, ``reduced`` and
-  ``assumed``;
+  ``assumed``, and optionally ``reference``;
+* ``reference/<name>.py``: the plain fp32 reference model that a
+  configuration names by ``"reference": "<name>"`` (``model`` where it
+  names none); ``reference/train.py`` and ``reference/agent.py``, the
+  training step and the agent's host loop, read only the configuration
+  and serve every reference model;
 * ``traffic/<mix>.json``: the mix's parameters; its ``driver`` names
   ``drivers/<driver>.py``, which runs the cell;
 * ``limits/<workload>.json``: the limit of each number that decides
@@ -15,12 +20,37 @@ Layout, all under ``bench_port/``:
   returning a number or None.
 
 A new configuration, mix, cell or metric is a new file and a new entry in
-``BENCHMARK.json``; no existing file changes.
+``BENCHMARK.json``; no existing file changes. A configuration whose
+trunks or backbone family ``reference/model.py`` lacks brings them in a
+new ``reference/<name>.py``, as ``reference/model.py``'s docstring
+says.
+
+The contract of a reference module: ``reference(config)`` imports it
+once per run (``Run.ref``), and the drivers, ``flops.py`` and
+``weights.py`` call it, none through an import of their own:
+
+* ``namespace(dict)``: the configuration as attributes;
+* ``build(cfg, device)``: the model, weights empty (``"meta"`` for
+  shapes and FLOPs);
+* ``plain_fp32()``: a context with TF32 off;
+* ``lowp(mode)``: a context in which the model rounds to ``mode``
+  (``"fp8"``: the control of ``correct``); ``reference/train.py`` enters
+  ``model.lowp``, so a module's layers round under that one;
+* ``_resizing``: a one-element list, above 0 while the model resizes
+  (the FLOP count leaves resizes out);
+* ``seed_rules(model)``: key -> (kind, value) for the leaves its own
+  classes add, merged into ``weights.py``'s rules; every float leaf
+  needs one;
+* ``TINY_TRUNK``: the trunk of the CPU-size runs of the tests.
+
+``namespace``, ``plain_fp32``, ``lowp`` and ``_resizing`` are
+``model.py``'s own, imported from it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import importlib.util
 import json
 import math
@@ -34,6 +64,8 @@ from typing import Dict, List, Tuple
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "transfuser_tpu")
+CONTRACT = ("namespace", "build", "plain_fp32", "lowp", "_resizing",
+            "seed_rules", "TINY_TRUNK")
 
 
 def load_json(path: str) -> Dict:
@@ -58,6 +90,21 @@ def load_module(kind: str, name: str):
     return mod
 
 
+def reference(config: Dict):
+    """The reference module that a configuration file names (its
+    ``reference`` key, ``model`` where it has none), imported once: the
+    same module object serves the build, the FLOP count and the
+    weights."""
+    name = config.get("reference", "model")
+    if not (isinstance(name, str) and name.isidentifier()):
+        raise ValueError(f"reference {name!r} is not a module name")
+    mod = importlib.import_module(f"bench_port.reference.{name}")
+    missing = [a for a in CONTRACT if not hasattr(mod, a)]
+    if missing:
+        raise ValueError(f"reference {name!r} lacks {missing}")
+    return mod
+
+
 def forbidden_modules() -> List[str]:
     """Loaded modules whose top-level name is JAX's or the JAX package's,
     compared whole (``transfuser_torch`` is not ``transfuser_tpu``)."""
@@ -77,6 +124,7 @@ class Run:
     trace: bool
     t_start: float              # perf_counter at process start
     spec: Dict = field(default_factory=dict)
+    ref: object = None          # the reference module (``reference``)
     device: object = None
     card: str = ""
     # filled by the driver
@@ -125,7 +173,8 @@ def prepare(workload: str, seed: int, seconds: float, trace: bool,
         c["file"] for c in sp["configs"] if c["name"] == w["config"])))
     mix = load_json(os.path.join(HERE, "traffic", f"{w['traffic']}.json"))
     limits = load_json(os.path.join(HERE, "limits", f"{workload}.json"))
-    return Run(w, config, mix, limits, seed, seconds, trace, t_start, sp)
+    return Run(w, config, mix, limits, seed, seconds, trace, t_start, sp,
+               reference(config))
 
 
 def metrics_of(run: Run, kind: str) -> List[Dict]:

@@ -15,11 +15,33 @@ join MLP) takes its operands and gives its output rounded to float8 e4m3,
 and the gradient that reaches its output rounded to e5m2; the attention
 products take e4m3 operands. Each rounding has a per-tensor scale; values
 stay fp32 between them.
+
+This module is the reference ``model`` of the harness's contract
+(``harness.py``), and the base of every other: a configuration whose
+file says ``"reference": "<name>"`` runs ``reference/<name>.py``, which
+adds trunks or a backbone family without copying or patching this file.
+It imports from here what the contract names (``namespace``,
+``plain_fp32``, ``lowp``, ``_resizing``) and the layers (``Conv2d``,
+``Linear``, ``BatchNorm``, ``LayerNorm``: rounded under ``lowp`` as
+``reference/train.py`` expects), writes its trunk classes in plain fp32
+PyTorch with the port's parameter names, and defines
+
+* ``build(cfg, device)``, which returns ``model.build(cfg, device,
+  trunks=dict(TRUNK_FACTORIES, <arch>=<factory>))`` and, for a family,
+  ``backbones=dict(BACKBONES, <family>=<class>)``: a trunk factory takes
+  ``in_channels`` and gives a module with ``stem(x)``, ``stage(i, x)``
+  for i in 0..3 and ``widths``; a backbone class takes ``(cfg,
+  lidar_in, trunks)`` and answers ``forward`` as ``TransfuserBackbone``
+  does;
+* ``seed_rules(model)``: this module's rules and one for each leaf its
+  classes add (``weights.py``: a leaf with no rule is an error);
+* ``TINY_TRUNK``: the trunk of the CPU-size runs of the harness's tests.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from types import SimpleNamespace
 import torch
@@ -290,12 +312,21 @@ TRUNKS = {
     "regnety_micro": dict(depths=(1, 2, 1, 1), widths=(24, 48, 96, 192),
                           group_width=24, stem_width=32),
 }
+# the trunks ``build`` knows by default: architecture -> factory of
+# ``in_channels``
+TRUNK_FACTORIES = {name: functools.partial(RegNetY, **kw)
+                   for name, kw in TRUNKS.items()}
+TINY_TRUNK = "regnety_micro"
 
 
-def make_trunk(arch, in_channels):
-    if arch not in TRUNKS:
-        raise ValueError(f"the reference has no trunk {arch!r}")
-    return RegNetY(in_channels=in_channels, **TRUNKS[arch])
+def make_trunk(arch, in_channels, trunks):
+    if arch not in trunks:
+        raise ValueError(
+            f"the reference has no trunk {arch!r} (it has {sorted(trunks)}); "
+            "a module bench_port/reference/<name>.py adds one by passing "
+            "trunks= to model.build, and the configuration's file names it "
+            'as "reference": "<name>"')
+    return trunks[arch](in_channels=in_channels)
 
 
 class _Holder(nn.Module):
@@ -417,15 +448,14 @@ class GPTFusion(nn.Module):
 # ----------------------------------------------------------------- backbone
 
 class TransfuserBackbone(nn.Module):
-    def __init__(self, cfg, lidar_in):
+    def __init__(self, cfg, lidar_in, trunks):
         super().__init__()
         self.cfg = cfg
         m = cfg.model
-        self.image_encoder = _Holder("features",
-                                     make_trunk(m.image_architecture, 3))
-        self.lidar_encoder = _Holder("_model",
-                                     make_trunk(m.lidar_architecture,
-                                                lidar_in))
+        self.image_encoder = _Holder(
+            "features", make_trunk(m.image_architecture, 3, trunks))
+        self.lidar_encoder = _Holder(
+            "_model", make_trunk(m.lidar_architecture, lidar_in, trunks))
         dims = self.image_encoder.features.widths
         for i in range(4):
             self.add_module(f"transformer{i + 1}",
@@ -603,11 +633,16 @@ class PointPillarNet(nn.Module):
 
 # ----------------------------------------------------------------- model
 
+BACKBONES = {"transFuser": TransfuserBackbone}
+
+
 class LidarCenterNet(nn.Module):
     """forward(...) -> pred_wp (B, pred_len, 2) and the seven NHWC head
-    maps, with ``compute_aux`` the BEV, semantic and depth maps."""
+    maps, with ``compute_aux`` the BEV, semantic and depth maps.
+    ``backbones`` maps the configuration's ``backbone`` to its class,
+    which builds its trunks from ``trunks``."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, trunks, backbones):
         super().__init__()
         self.cfg = cfg
         m = cfg.model
@@ -615,9 +650,12 @@ class LidarCenterNet(nn.Module):
         lidar_ch = pp.num_features[-1] if pp.use_point_pillars \
             else 2 * m.lidar_seq_len
         lidar_ch += int(m.use_target_point_image)
-        if m.backbone != "transFuser":
-            raise ValueError(f"the reference has no backbone {m.backbone!r}")
-        self._model = TransfuserBackbone(cfg, lidar_ch)
+        if m.backbone not in backbones:
+            raise ValueError(
+                f"the reference has no backbone {m.backbone!r}; a module "
+                "bench_port/reference/<name>.py adds one by passing "
+                "backbones= to model.build")
+        self._model = backbones[m.backbone](cfg, lidar_ch, trunks)
         feats = m.perception_output_features
         if m.multitask:
             args = (feats, m.deconv_channel_num_1, m.deconv_channel_num_2,
@@ -730,9 +768,21 @@ def decode_heatmap(out, k, kernel, num_dir_bins, ratio=4.0):
         gather("head_velocity")[..., 0], brake, scores], dim=-1)
 
 
-def build(cfg: SimpleNamespace, device="cpu") -> LidarCenterNet:
+def build(cfg: SimpleNamespace, device="cpu", trunks=TRUNK_FACTORIES,
+          backbones=BACKBONES) -> LidarCenterNet:
     """The reference model with empty weights on ``device`` ("meta" for
-    shapes and FLOPs); load a state dict before use."""
+    shapes and FLOPs); load a state dict before use. ``trunks`` and
+    ``backbones``: the tables the configuration's architecture and
+    backbone names are looked up in (another reference module passes its
+    own, this module's entries included)."""
     with torch.device(device):
-        model = LidarCenterNet(cfg)
+        model = LidarCenterNet(cfg, trunks, backbones)
     return model.eval()
+
+
+def seed_rules(model: nn.Module):
+    """The seeded-weight rules (``weights.py``: key -> (kind, value)) of
+    the leaves that only this module's classes hold: the GPTs' position
+    embeddings start at zero, as the configuration initialises them."""
+    return {f"{name}.pos_emb": ("zero", 0.0)
+            for name, m in model.named_modules() if isinstance(m, GPTFusion)}

@@ -28,7 +28,7 @@ def test_reference_forward_equals_the_port_in_fp32(name):
     cfg = ref.namespace(raw)
     port = LidarCenterNet(GlobalConfig.from_json(json.dumps(raw)),
                           dtype=torch.float32, device="cpu")
-    sd = seeded_state_dict(cfg, 21, "cpu")
+    sd = seeded_state_dict(ref, cfg, 21, "cpu")
     port.load_state_dict(sd)
     model = ref.build(cfg)
     model.load_state_dict(sd)

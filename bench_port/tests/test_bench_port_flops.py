@@ -87,14 +87,19 @@ def test_model_count_is_the_sum_of_its_layers():
     x = {k: torch.zeros(v.shape, dtype=v.dtype) for k, v in x.items()}
     with torch.no_grad():
         model(**ref_train.model_inputs(x))
-    assert flops.forward_flops(cfg) == sum(total)
+    assert flops.forward_flops(ref, cfg) == sum(total)
 
 
-def test_flagship_counts():
-    """The full-size counts, on the meta device: one forward and one
-    training step at batch 12 (2.763 TFLOP, as the port's bench counted
-    its first step)."""
-    raw = harness.load_json(f"{harness.HERE}/configs/transfuser.json")
-    cfg = ref.namespace(raw["config"])
-    assert flops.forward_flops(cfg) == 70730397184
-    assert flops.train_step_flops(cfg, 12) == 2763008593920
+@pytest.mark.parametrize("name, forward, step", [
+    ("transfuser", 70730397184, 2763008593920),
+    ("transfuser-pillars", 71118472704, 2777042571264)])
+def test_flagship_counts(name, forward, step):
+    """The full-size counts of each accepted configuration, on the meta
+    device, through the reference module its file names: one forward and
+    one training step at batch 12 (the flagship's 2.763 TFLOP, as the
+    port's bench counted its first step)."""
+    raw = harness.load_json(f"{harness.HERE}/configs/{name}.json")
+    run_ref = harness.reference(raw)
+    cfg = run_ref.namespace(raw["config"])
+    assert flops.forward_flops(run_ref, cfg) == forward
+    assert flops.train_step_flops(run_ref, cfg, 12) == step

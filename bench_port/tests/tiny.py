@@ -1,7 +1,8 @@
 """A CPU-sized run of a cell: the cell's files with the configuration cut
-to the port's test size (64x128 camera crop, 64x64 LiDAR grid, micro
-RegNetY trunks, one GPT layer, a 2,000-point pillar cloud on an 8 m
-grid), so that the harness's tests drive the whole path on the CPU."""
+to the port's test size (64x128 camera crop, 64x64 LiDAR grid, the
+reference module's ``TINY_TRUNK`` for both trunks (micro RegNetY for
+``model``), one GPT layer, a 2,000-point pillar cloud on an 8 m grid), so
+that the harness's tests drive the whole path on the CPU."""
 
 from __future__ import annotations
 
@@ -14,14 +15,14 @@ from bench_port import harness
 
 
 def tiny_config(config: dict) -> dict:
+    trunk = harness.reference(config).TINY_TRUNK
     c = copy.deepcopy(config)
     g = c["config"]
     g["sensors"].update(img_resolution=[64, 128], lidar_resolution_width=64,
                         lidar_resolution_height=64)
     g["bev"].update(bev_resolution_width=40, bev_resolution_height=40)
     m = g["model"]
-    m.update(image_architecture="regnety_micro",
-             lidar_architecture="regnety_micro",
+    m.update(image_architecture=trunk, lidar_architecture=trunk,
              perception_output_features=128, deconv_channel_num_1=32,
              deconv_channel_num_2=16, deconv_channel_num_3=8)
     m["gpt"]["n_layer"] = 1

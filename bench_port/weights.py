@@ -14,6 +14,12 @@ from none to all 100 decoded boxes with the seed, and the agent's
 polygon NMS then costs from nothing to seconds a frame: the seed would
 change the work. At 0.001 every score stays near the 0.1 prior, on every
 seed, and no box passes the threshold.
+
+Every float leaf has a rule: these, which hold for the layers of every
+reference, merged with the run's reference module's ``seed_rules``
+(its own leaves, such as the GPTs' position embeddings), whose rule
+wins where both name a leaf. A leaf that no rule names is an error, not
+a zero.
 """
 
 from __future__ import annotations
@@ -24,14 +30,13 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from .reference import model as ref
-
 TRUNC = 0.87962566103423978  # std of a unit normal cut at +-2
 
 
-def _plan(model: nn.Module):
-    """(key, kind, std) for every entry of the state dict: kind is
-    "normal", "zero", "one" or a constant."""
+def _plan(ref, model: nn.Module):
+    """key -> (kind, value) for the float leaves of the state dict: kind
+    is "normal" (value: its standard deviation), "zero", "one" or
+    "const"."""
     plan = {}
     c = model.cfg.model.centernet
     for name, m in model.named_modules():
@@ -52,6 +57,9 @@ def _plan(model: nn.Module):
         elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             plan[pre + "weight"] = ("one", 0.0)
             plan[pre + "bias"] = ("zero", 0.0)
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                plan[pre + "running_mean"] = ("zero", 0.0)
+                plan[pre + "running_var"] = ("one", 0.0)
     for branch in ("wh", "offset"):
         for i in (0, 2):
             plan[f"head.{branch}_head.{i}.weight"] = (
@@ -61,29 +69,36 @@ def _plan(model: nn.Module):
     prior = c.center_net_bias_init_with_prob
     plan["head.heatmap_head.2.bias"] = ("const",
                                         -math.log((1 - prior) / prior))
+    plan.update(ref.seed_rules(model))
     return plan
 
 
-def seeded_state_dict(cfg, seed: int, device) -> Dict[str, torch.Tensor]:
-    """The state dict of the configuration's model, from ``seed``, on
-    ``device``: one normal draw for every random leaf, one buffer for the
-    rest."""
-    shapes = ref.build(cfg, "meta").state_dict()
-    plan = _plan(ref.build(cfg, "meta"))
+def seeded_state_dict(ref, cfg, seed: int, device
+                      ) -> Dict[str, torch.Tensor]:
+    """The state dict of the configuration's model as the reference
+    module ``ref`` builds it, from ``seed``, on ``device``: one normal
+    draw for every random leaf, one buffer for the rest."""
+    model = ref.build(cfg, "meta")
+    shapes = model.state_dict()
+    plan = _plan(ref, model)
     floats = {k: v for k, v in shapes.items() if v.is_floating_point()}
+    unnamed = [k for k in floats if k not in plan]
+    if unnamed:
+        raise ValueError(
+            f"no seeding rule for {len(unnamed)} float leaves of "
+            f"{ref.__name__}, first {unnamed[:5]}: give them one in its "
+            "seed_rules")
     total = sum(v.numel() for v in floats.values())
     gen = torch.Generator(device=device).manual_seed(int(seed))
     flat = torch.zeros(total, device=device)
-    normal = [k for k in floats if plan.get(k, ("zero",))[0] == "normal"]
+    normal = [k for k in floats if plan[k][0] == "normal"]
     n_normal = sum(floats[k].numel() for k in normal)
     draw = torch.randn(n_normal, generator=gen, device=device).clamp_(-2, 2)
     out, at, taken = {}, 0, 0
     for k, v in floats.items():
         n = v.numel()
         view = flat[at:at + n]
-        kind, value = plan.get(k, ("zero", 0.0))
-        if k.endswith("running_var"):
-            kind = "one"
+        kind, value = plan[k]
         if kind == "normal":
             view.copy_(draw[taken:taken + n]).mul_(value)
             taken += n
@@ -91,6 +106,8 @@ def seeded_state_dict(cfg, seed: int, device) -> Dict[str, torch.Tensor]:
             view.fill_(1.0)
         elif kind == "const":
             view.fill_(value)
+        elif kind != "zero":
+            raise ValueError(f"{k}: no seeding kind {kind!r}")
         out[k] = view.view(v.shape)
         at += n
     for k, v in shapes.items():
