@@ -25,7 +25,11 @@ window are named ``after_...``. Besides, the reference's loss of each
 step after the window from the weights the program started that step
 from (``after_step_loss_gap``): a wrong batch or a half one shows there
 on every step, where the reference's own chain of steps drifts from the
-program's. ``limits/<cell>.json`` says which numbers decide.
+program's. ``limits/<cell>.json`` says which numbers decide: those of
+``numbers``, each also prefixed ``after_``, and ``after_step_loss_gap``.
+A model with no BatchNorm has no ``bn_stats_gap`` (nor
+``after_bn_stats_gap``): a limits file that names it for such a model
+fails every run.
 """
 
 from __future__ import annotations
@@ -243,7 +247,9 @@ def numbers(got: Dict, want: Dict) -> Dict[str, float]:
     ``UNMOVED`` of the median leaf's. ``bn_stats_gap``: the median over
     BatchNorm running statistics of the norm of the difference of their
     changes in the first step, over the reference change's norm or the
-    median one, whichever is larger."""
+    median one, whichever is larger; left out, not set to 0, where the
+    reference has no running statistics (a model with no BatchNorm), so
+    that a limit on it reads it as missing and fails."""
     med = statistics.median(want["grad"].values())
     moved = {n for n, g in want["grad"].items() if g >= UNMOVED * med}
     out = {"loss1_gap": abs(got["loss"][0] - want["loss"][0])
@@ -256,6 +262,8 @@ def numbers(got: Dict, want: Dict) -> Dict[str, float]:
         out[name] = float(gaps.max())
         out[f"{name}_p90"] = float(np.quantile(gaps, 0.9))
         out[f"{name}_median"] = float(np.median(gaps))
+    if not want["stats"]:
+        return out
     ref_norm = {k: float(torch.linalg.vector_norm(v))
                 for k, v in want["stats"].items()}
     floor = statistics.median(ref_norm.values())
