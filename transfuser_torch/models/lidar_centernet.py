@@ -64,6 +64,9 @@ class LidarCenterNet(nn.Module):
         self.config = config
         self.dtype = dtype
         self._ego_graphs: Optional[EgoGraphs] = None
+        # counts what gives the parameters or buffers new storage, which a
+        # captured train step (train/step_graphs.py) cannot follow
+        self.storage_version = 0
         pp = mcfg.point_pillars
         lidar_ch = (pp.num_features[-1] if pp.use_point_pillars
                     else 2 * mcfg.lidar_seq_len)
@@ -210,13 +213,16 @@ class LidarCenterNet(nn.Module):
         # a move gives the parameters new storage: the graphs read the old
         if self._ego_graphs is not None:
             self._ego_graphs.clear()
+        self.storage_version += 1
         return super()._apply(fn, recurse)
 
     def load_state_dict(self, state_dict, strict: bool = True,
                         assign: bool = False):
         # assign=True swaps the parameters; an in-place load needs nothing
-        if assign and self._ego_graphs is not None:
-            self._ego_graphs.clear()
+        if assign:
+            self.storage_version += 1
+            if self._ego_graphs is not None:
+                self._ego_graphs.clear()
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
 

@@ -18,6 +18,7 @@ import torch
 
 from ..config import GlobalConfig
 from ..ops import centernet as cn
+from ..ops.dtypes import constant
 from ..parallel import comm
 
 
@@ -42,8 +43,8 @@ def compute_losses(outputs: Dict[str, torch.Tensor],
     losses["loss_wp"] = (outputs["pred_wp"] - batch["ego_waypoint"]).abs() \
         .mean()
     # BEV segmentation: class-weighted CE (model.py:762-763)
-    bev_w = torch.tensor(cfg.loss.bev_class_weights, dtype=torch.float32,
-                         device=outputs["pred_bev"].device)
+    bev_w = constant(tuple(cfg.loss.bev_class_weights), torch.float32,
+                     outputs["pred_bev"].device)
     losses["loss_bev"] = cn.cross_entropy_mean(outputs["pred_bev"],
                                                batch["bev"], bev_w, group)
 

@@ -17,6 +17,12 @@ drops by the warmup (train_state.py:39-45 there), reproduced here.
 
 The update runs on the device with ``torch._foreach_*`` ops over all
 parameters at once; the step count lives on the host, so no step syncs.
+The host part of an update (``AdamW.advance``: count it, and write its
+learning rate and bias corrections into a small device tensor with
+``fill_``, whose value travels as a launch argument) is apart from the
+device part, which reads that tensor: a captured step
+(``train/step_graphs.py``) holds the device part, and each replay runs
+the host part before it.
 
 Under a mesh (``parallel/sharding.py``):
   * ZeRO-1 (``zero=True`` over a data group of more than one rank): whole
@@ -51,6 +57,13 @@ from ..parallel.sharding import (Mesh, TensorParallel, gather_tensor,
 from ..tracing import span
 
 Schedule = Callable[[int], float]
+
+
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is being captured into a
+    graph."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
 
 
 def make_schedule(config: GlobalConfig,
@@ -181,6 +194,11 @@ class AdamW:
                    for i, p in enumerate(self.params)]
         self.nu = [torch.zeros_like(p) if i in owned else None
                    for i, p in enumerate(self.params)]
+        like = self.params[0] if self.params else torch.zeros(())
+        # the update under way's learning rate, 1 - b1^t and 1 - b2^t
+        self.scalars = torch.zeros(3, dtype=like.dtype, device=like.device)
+        self._lr, self._bc1, self._bc2 = self.scalars.unbind()
+        self._zeros = {}  # a zero gradient for each parameter that has none
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -237,10 +255,16 @@ class AdamW:
                 dst.copy_(v)
         self.step_count = int(state["step_count"])
 
+    def _zero(self, i: int) -> torch.Tensor:
+        z = self._zeros.get(i)
+        if z is None:
+            z = self._zeros[i] = torch.zeros_like(self.params[i])
+        return z
+
     def clipped_grads(self) -> List[torch.Tensor]:
         with span("train.clip"):
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in self.params]
+            grads = [p.grad if p.grad is not None else self._zero(i)
+                     for i, p in enumerate(self.params)]
             group = None if self.tp is None else self.tp.group
             dims = self.shard_dims if self.tp is not None else None
             if self.agc_clip > 0:
@@ -251,12 +275,25 @@ class AdamW:
                                             shard_dims=dims, group=group)
         return grads
 
+    def advance(self) -> None:
+        """The host part of an update: count it, and write its learning
+        rate and bias corrections on the device by ``fill_`` (a launch
+        argument each, no host-to-device copy)."""
+        lr = self.schedule(self.step_count)
+        self.step_count += 1
+        self._lr.fill_(lr)
+        self._bc1.fill_(1 - self.b1 ** self.step_count)
+        self._bc2.fill_(1 - self.b2 ** self.step_count)
+
     @torch.no_grad()
     def step(self) -> None:
+        """One update: ``advance``, then clipping and AdamW on the device.
+        While a CUDA graph captures the step, the host part is left to
+        the code that replays it, before each replay."""
         grads = self.clipped_grads()
         with span("train.update"):
-            lr = self.schedule(self.step_count)
-            self.step_count += 1
+            if not capturing():
+                self.advance()
             b1, b2 = self.b1, self.b2
             own = self.owned
             params = [self.params[i] for i in own]
@@ -269,14 +306,14 @@ class AdamW:
             torch._foreach_mul_(nu, b2)
             torch._foreach_add_(nu, torch._foreach_mul(
                 torch._foreach_mul(grads, grads), 1 - b2))
-            mu_hat = torch._foreach_div(mu, 1 - b1 ** self.step_count)
-            nu_hat = torch._foreach_div(nu, 1 - b2 ** self.step_count)
+            mu_hat = torch._foreach_div(mu, self._bc1)
+            nu_hat = torch._foreach_div(nu, self._bc2)
             denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
             update = torch._foreach_div(mu_hat, denom)
             if self.weight_decay:
                 torch._foreach_add_(update, torch._foreach_mul(
                     params, self.weight_decay))
-            torch._foreach_add_(params, torch._foreach_mul(update, -lr))
+            torch._foreach_sub_(params, torch._foreach_mul(update, self._lr))
             if self.zero:
                 self._broadcast_from_owners(self.params)
 

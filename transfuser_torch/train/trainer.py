@@ -7,11 +7,16 @@ with the aux maps, the in-graph CenterNet targets and the 11-term loss,
 backward, clip, AdamW. It returns the loss terms as tensors on the
 device; the host reads nothing, so steps queue without a sync.
 
-Dropout masks are drawn from a ``torch.Generator`` on the model's device,
-seeded per step from ``config.train.seed``, the step and the rank's data
-index, so a run repeats and the data ranks draw different masks for
-their different rows; they cannot equal the JAX package's ``fold_in``
-stream.
+Dropout masks are drawn from the step's ``torch.Generator`` on the
+model's device, seeded before every step from ``config.train.seed``, the
+count of updates done and the rank's data index, so a run repeats and
+the data ranks draw different masks for their different rows; they
+cannot equal the JAX package's ``fold_in`` stream.
+
+With no mesh, on a card, the step is replayed as one CUDA graph from its
+third call with a batch signature on (``train/step_graphs.py``); a
+trainer under a mesh, on the CPU, or a call under a FLOP counter runs
+eagerly.
 
 Under a mesh (``parallel/sharding.py``) a step computes what one device
 computes on the global batch, as the JAX trainer's GSPMD mesh does:
@@ -48,6 +53,7 @@ from ..parallel.sharding import Mesh, shard_model
 from ..tracing import span
 from .losses import compute_losses, global_losses, total_loss
 from .metrics import eval_metrics
+from .step_graphs import StepGraphs
 from .train_state import AdamW, make_optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -75,30 +81,45 @@ def _model_inputs(batch: Batch):
 def make_train_step(model: torch.nn.Module, config: GlobalConfig,
                     optimizer: AdamW, mesh: Optional[Mesh] = None
                     ) -> Callable[[Batch], Batch]:
-    """``model``: the LidarCenterNet, or its DDP wrapper under a mesh."""
+    """``model``: the LidarCenterNet, or its DDP wrapper under a mesh. The
+    step returned carries its ``StepGraphs`` as ``.graphs`` (None under a
+    mesh)."""
     device = next(model.parameters()).device
     seed = int(config.train.seed)
     group = None if mesh is None else mesh.data_group
     stream = 0 if mesh is None else mesh.data_index << 48
+    gen = torch.Generator(device=device)
+
+    def reseed() -> None:
+        gen.manual_seed(seed * 2 ** 32 + optimizer.step_count + stream)
+
+    def step(batch: Batch) -> Batch:
+        """The device part of a step: what a CUDA graph captures."""
+        with span("train.forward"):
+            batch = unpack_batch(batch)
+            model.train()
+            args, extra = _model_inputs(batch)
+            out = model(*args, **extra, compute_aux=True, gen=gen)
+        with span("train.losses"):
+            detailed = compute_losses(out, batch, config, group)
+            loss = total_loss(detailed, config)
+        with span("train.backward"):
+            optimizer.zero_grad()
+            loss.backward()
+        optimizer.step()
+        return global_losses({"loss_total": loss, **detailed}, group)
+
+    graphs = None if mesh is not None else StepGraphs(step, reseed, gen,
+                                                      optimizer, model)
 
     def train_step(batch: Batch) -> Batch:
         with span("train.step"):
-            with span("train.forward"):
-                batch = unpack_batch(batch)
-                model.train()
-                gen = torch.Generator(device=device).manual_seed(
-                    seed * 2 ** 32 + optimizer.step_count + stream)
-                args, extra = _model_inputs(batch)
-                out = model(*args, **extra, compute_aux=True, gen=gen)
-            with span("train.losses"):
-                detailed = compute_losses(out, batch, config, group)
-                loss = total_loss(detailed, config)
-            with span("train.backward"):
-                optimizer.zero_grad()
-                loss.backward()
-            optimizer.step()
-            return global_losses({"loss_total": loss, **detailed}, group)
+            if graphs is not None:
+                return graphs(batch)
+            reseed()
+            return step(batch)
 
+    train_step.graphs = graphs
     return train_step
 
 
