@@ -2549,6 +2549,7 @@ def parallel_rank(rank: int, job_path: str) -> None:
     def both_steps():
         for p_off, p_on in zip(off.optimizer.params, on.optimizer.params):
             p_off.grad = p_on.grad.clone()
+        off.optimizer.advance()
         off.optimizer.step()
         step_on()
 

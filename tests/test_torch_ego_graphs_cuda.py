@@ -1,5 +1,5 @@
 """CUDA-graph replay of ``LidarCenterNet.forward_ego``
-(``transfuser_torch/models/ego_graphs.py``) on a card. Every test is
+(``transfuser_torch/graphs.py``) on a card. Every test is
 marked ``cuda`` and skips without one; the file imports neither JAX nor
 the JAX package:
 
@@ -26,7 +26,8 @@ from chip_smoke import (FAMILY_CASES, GEOMETRIC_CLOUD_POINTS, AGENT_MODES,
                         flagship_member, pillar_config, pillar_inputs,
                         synthetic_cloud, synthetic_sensor_frames)
 from transfuser_torch.config import GlobalConfig
-from transfuser_torch.models import LidarCenterNet, ego_graphs
+from transfuser_torch import graphs
+from transfuser_torch.models import LidarCenterNet
 from transfuser_torch.ops import kernels
 
 FRAMES = 4
@@ -103,7 +104,7 @@ def test_replay_equals_eager_bit_for_bit(backbone, image, lidar, attention):
     again = model.forward_ego(*frames[0])
     assert _same(again, eager[0]), "eager forward_ego is not reproducible"
     got, launched = _replayed(model, frames)
-    assert len(model._ego_graphs.graphs) == 1
+    assert len(model.graphs.graphs) == 1
     for i, (g, e) in enumerate(zip(got, eager)):
         assert _same(g, e), f"frame {i} differs from eager"
     assert not _same(got[1], got[2])  # the frames are distinct
@@ -117,11 +118,11 @@ def test_a_stale_graph_fails_the_comparison(monkeypatch):
     frame's inputs: the input copy skipped."""
     _needs_card()
 
-    def stale(self, args):
-        self.graph.replay()
-        return tuple(o.clone() for o in self.outputs)
+    def stale(self, graph, inputs):
+        graph.graph.replay()
+        return tuple(o.clone() for o in graph.outputs)
 
-    monkeypatch.setattr(ego_graphs.Graph, "__call__", stale)
+    monkeypatch.setattr(graphs.Graphs, "_replay", stale)
     cfg = GlobalConfig()
     model = LidarCenterNet(cfg, dtype=torch.bfloat16, device="cuda", seed=3)
     frames = _frames(cfg, "transFuser")
@@ -147,7 +148,7 @@ def _graphed(cfg, frames):
     """A seed-3 flagship model that has captured its graph."""
     model = LidarCenterNet(cfg, dtype=torch.bfloat16, device="cuda", seed=3)
     _replayed(model, frames[:2])
-    assert len(model._ego_graphs.graphs) == 1
+    assert len(model.graphs.graphs) == 1
     return model
 
 
@@ -167,11 +168,11 @@ def test_outputs_outlive_the_next_replay(flagship):
 def test_weights_loaded_in_place_reach_the_next_replay(flagship):
     cfg, frames, _, b = flagship
     model = _graphed(cfg, frames)
-    graph = next(iter(model._ego_graphs.graphs.values()))
+    graph = next(iter(model.graphs.graphs.values()))
     model.load_state_dict(b.state_dict())
     for f in frames[2:]:
         assert _same(model.forward_ego(*f), b.forward_ego(*f))
-    assert list(model._ego_graphs.graphs.values()) == [graph]
+    assert list(model.graphs.graphs.values()) == [graph]
 
 
 @pytest.mark.cuda
@@ -186,9 +187,11 @@ def test_a_move_or_an_assigning_load_drops_the_graph(flagship, how):
         model.load_state_dict({k: v.clone() for k, v in
                                b.state_dict().items()}, assign=True)
         want = b
-    assert not model._ego_graphs.graphs
-    got, _ = _launched(model, frames)
-    assert len(model._ego_graphs.graphs) == 1  # captured anew
+    got, _ = _launched(model, frames[:1])
+    assert not model.graphs.graphs  # dropped at the next call
+    more, _ = _launched(model, frames[1:])
+    got += more
+    assert len(model.graphs.graphs) == 1  # captured anew
     for f, g in zip(frames, got):
         assert _same(g, want.forward_ego(*f))
 

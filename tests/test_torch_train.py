@@ -413,6 +413,7 @@ def test_optimizer_matches_optax_on_fixed_gradients(clip):
         jp, opt_state = update(grads, opt_state, jp)
         for k, p in tp.items():
             p.grad = _to_torch_layout(k, grads[k])
+        opt.advance()
         opt.step()
         for k, p in tp.items():
             np.testing.assert_allclose(

@@ -1,5 +1,5 @@
 """CUDA-graph replay of the whole training step
-(``transfuser_torch/train/step_graphs.py``) on a card. Every test is
+(``transfuser_torch/graphs.py``, ``StepGraphs``) on a card. Every test is
 marked ``cuda`` and skips without one; the file imports neither JAX nor
 the JAX package:
 
@@ -230,7 +230,7 @@ def test_at_lr_0_a_replay_draws_the_eager_masks(tmp_path):
 
 
 def _skip_reseed(trainer):
-    trainer.train_step.graphs.reseed = lambda: None
+    trainer.train_step.graphs.host = trainer.optimizer.advance
 
 
 def _skip_fill(trainer):
@@ -261,10 +261,10 @@ def _planted(lr, tmp) -> dict:
         for plant in (_skip_reseed, _skip_fill, _skip_copy):
             graphs = case.trainer.train_step.graphs
             graph = next(iter(graphs.graphs.values()))
-            inputs, reseed = graph.inputs, graphs.reseed
+            inputs, host = graph.inputs, graphs.host
             plant(case.trainer)
             got = case.graphed()
-            graph.inputs, graphs.reseed = inputs, reseed
+            graph.inputs, graphs.host = inputs, host
             case.trainer.optimizer.__dict__.pop("advance", None)
             found[plant.__name__] = (case.gaps(got, want),
                                      got["loss"] == want["loss"])

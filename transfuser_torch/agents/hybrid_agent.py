@@ -22,7 +22,7 @@ cell indices below 22), uploads it once through pinned memory, widens it
 on the device, runs every member's ``forward_ego`` in bf16 and brings the
 waypoints and boxes of all members back in one copy. On the card each
 member replays its ``forward_ego`` from a CUDA graph from its second
-compute frame on (``models/ego_graphs.py``); members appended to
+compute frame on (``graphs.py``); members appended to
 ``members`` after setup are opted in at their first frame. latentTF lists
 no LiDAR sensor and reads none: its histogram is zeros (the model replaces
 it with a positional grid); geometric_fusion computes the correspondences

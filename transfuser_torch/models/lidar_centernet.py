@@ -30,11 +30,11 @@ import torch
 import torch.nn as nn
 
 from ..config import GlobalConfig
+from ..graphs import Graphs
 from ..ops import centernet as cn
 from ..ops.image_ops import resize_bilinear, to_nchw, to_nhwc
 from ..tracing import span
 from .decoders import DepthDecoder, SegDecoder
-from .ego_graphs import EgoGraphs
 from .encoders import ConvNeXtBlock
 from .geometric_fusion import GeometricFusionBackbone
 from .heads import LidarCenterNetHead, bias_init_with_prob
@@ -63,9 +63,9 @@ class LidarCenterNet(nn.Module):
                              f"{', '.join(BACKBONES)}")
         self.config = config
         self.dtype = dtype
-        self._ego_graphs: Optional[EgoGraphs] = None
+        self.graphs: Optional[Graphs] = None
         # counts what gives the parameters or buffers new storage, which a
-        # captured train step (train/step_graphs.py) cannot follow
+        # CUDA graph (graphs.py) cannot follow
         self.storage_version = 0
         pp = mcfg.point_pillars
         lidar_ch = (pp.num_features[-1] if pp.use_point_pillars
@@ -174,19 +174,21 @@ class LidarCenterNet(nn.Module):
         left to the host-side agent. After ``replay_forward_ego()``, CUDA
         inputs run through a CUDA graph from their second call on, whose
         replay skips the mode walks; the outputs are the caller's."""
-        args = (rgb, lidar_bev, target_point, target_point_image, velocity,
-                bev_points, cam_points, num_points)
+        inputs = dict(rgb=rgb, lidar_bev=lidar_bev, target_point=target_point,
+                      target_point_image=target_point_image,
+                      velocity=velocity, bev_points=bev_points,
+                      cam_points=cam_points, num_points=num_points)
         with span("model.forward_ego"):
-            if self._ego_graphs is not None:
-                return self._ego_graphs(self._forward_ego_eval, args,
-                                        self.dtype)
-            return self._forward_ego_eval(*args)
+            if self.graphs is not None:
+                return self.graphs(self._forward_ego_eval, inputs,
+                                   self.storage_version, self.dtype)
+            return self._forward_ego_eval(inputs)
 
-    def _forward_ego_eval(self, *args):
+    def _forward_ego_eval(self, inputs):
         was_training = self.training
         self.eval()
         try:
-            out = self(*args)
+            out = self(**inputs)
         finally:
             self.train(was_training)
         cnc = self.config.model.centernet
@@ -202,17 +204,15 @@ class LidarCenterNet(nn.Module):
 
     def replay_forward_ego(self) -> None:
         """Opt in to replaying ``forward_ego`` from CUDA graphs
-        (``models/ego_graphs.py``), for a caller whose weights change only
-        in place: a graph would ignore weights passed in for one call, as
+        (``graphs.py``), for a caller whose weights change only in place:
+        a graph would ignore weights passed in for one call, as
         ``torch.func.functional_call`` passes them. Does nothing to CPU
         inputs. Idempotent."""
-        if self._ego_graphs is None:
-            self._ego_graphs = EgoGraphs()
+        if self.graphs is None:
+            self.graphs = Graphs("model.replay")
 
     def _apply(self, fn, recurse=True):
         # a move gives the parameters new storage: the graphs read the old
-        if self._ego_graphs is not None:
-            self._ego_graphs.clear()
         self.storage_version += 1
         return super()._apply(fn, recurse)
 
@@ -221,8 +221,6 @@ class LidarCenterNet(nn.Module):
         # assign=True swaps the parameters; an in-place load needs nothing
         if assign:
             self.storage_version += 1
-            if self._ego_graphs is not None:
-                self._ego_graphs.clear()
         return super().load_state_dict(state_dict, strict=strict,
                                        assign=assign)
 

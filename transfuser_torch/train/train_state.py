@@ -17,12 +17,11 @@ drops by the warmup (train_state.py:39-45 there), reproduced here.
 
 The update runs on the device with ``torch._foreach_*`` ops over all
 parameters at once; the step count lives on the host, so no step syncs.
-The host part of an update (``AdamW.advance``: count it, and write its
-learning rate and bias corrections into a small device tensor with
-``fill_``, whose value travels as a launch argument) is apart from the
-device part, which reads that tensor: a captured step
-(``train/step_graphs.py``) holds the device part, and each replay runs
-the host part before it.
+An update is ``advance()`` then ``step()``. ``advance`` is its host part:
+count it, and write its learning rate and bias corrections into a small
+device tensor with ``fill_``, whose value travels as a launch argument.
+``step`` is its device part, which reads that tensor, so a CUDA graph of
+the training step holds it and every replay follows the host part.
 
 Under a mesh (``parallel/sharding.py``):
   * ZeRO-1 (``zero=True`` over a data group of more than one rank): whole
@@ -57,13 +56,6 @@ from ..parallel.sharding import (Mesh, TensorParallel, gather_tensor,
 from ..tracing import span
 
 Schedule = Callable[[int], float]
-
-
-def capturing() -> bool:
-    """Whether this thread's current CUDA stream is being captured into a
-    graph."""
-    return torch.cuda.is_available() and \
-        torch.cuda.is_current_stream_capturing()
 
 
 def make_schedule(config: GlobalConfig,
@@ -287,13 +279,10 @@ class AdamW:
 
     @torch.no_grad()
     def step(self) -> None:
-        """One update: ``advance``, then clipping and AdamW on the device.
-        While a CUDA graph captures the step, the host part is left to
-        the code that replays it, before each replay."""
+        """The device part of an update: clipping and AdamW, with the
+        scalars that ``advance``, run first, wrote."""
         grads = self.clipped_grads()
         with span("train.update"):
-            if not capturing():
-                self.advance()
             b1, b2 = self.b1, self.b2
             own = self.owned
             params = [self.params[i] for i in own]

@@ -13,10 +13,13 @@ count of updates done and the rank's data index, so a run repeats and
 the data ranks draw different masks for their different rows; they
 cannot equal the JAX package's ``fold_in`` stream.
 
-With no mesh, on a card, the step is replayed as one CUDA graph from its
-third call with a batch signature on (``train/step_graphs.py``); a
-trainer under a mesh, on the CPU, or a call under a FLOP counter runs
-eagerly.
+A step has a host part, run first whichever way the step runs:
+re-seed the generator from the count of updates done, then
+``AdamW.advance`` (count the update, write its learning rate and bias
+corrections on the device). The rest is the device part. With no mesh,
+on a card, the step is replayed as one CUDA graph from its third call
+with a batch signature on (``StepGraphs``, ``graphs.py``); a trainer
+under a mesh, on the CPU, or a call under a FLOP counter runs eagerly.
 
 Under a mesh (``parallel/sharding.py``) a step computes what one device
 computes on the global batch, as the JAX trainer's GSPMD mesh does:
@@ -48,12 +51,12 @@ import torch
 
 from ..config import GlobalConfig
 from ..data.pack import unpack_batch
+from ..graphs import Graph, Graphs
 from ..models import LidarCenterNet
 from ..parallel.sharding import Mesh, shard_model
 from ..tracing import span
 from .losses import compute_losses, global_losses, total_loss
 from .metrics import eval_metrics
-from .step_graphs import StepGraphs
 from .train_state import AdamW, make_optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -78,6 +81,41 @@ def _model_inputs(batch: Batch):
     return args, extra
 
 
+class StepGraphs(Graphs):
+    """The training step's graphs. ``host``: the step's host part. The
+    generator is registered with each graph, and a replay reads its seed
+    and offset as the host part left them, so a replayed step draws the
+    dropout masks of an eager one. The gradients are None at capture, so
+    that the captured backward allocates them from the graph's pool and
+    writes them on every replay; after a replay the model is in training
+    mode and each parameter's ``.grad`` is this step's gradient, as an
+    eager step leaves them."""
+
+    def __init__(self, model: LidarCenterNet, host: Callable[[], None],
+                 gen: torch.Generator, optimizer: AdamW):
+        super().__init__("train.replay")
+        self.model, self.host = model, host
+        self.generator, self.optimizer = gen, optimizer
+
+    def capture(self, record, call):
+        params = self.optimizer.params
+        kept = [p.grad for p in params]
+        self.optimizer.zero_grad()
+        graph, outputs, _ = super().capture(record, call)
+        grads = [p.grad for p in params]
+        for p, g in zip(params, kept):  # this step's, until the next replay
+            p.grad = g
+        return graph, outputs, grads
+
+    def replayed(self, graph: Graph) -> None:
+        if not self.model.training:
+            self.model.train()
+        params = self.optimizer.params
+        if params and params[0].grad is not graph.kept[0]:
+            for p, g in zip(params, graph.kept):
+                p.grad = g
+
+
 def make_train_step(model: torch.nn.Module, config: GlobalConfig,
                     optimizer: AdamW, mesh: Optional[Mesh] = None
                     ) -> Callable[[Batch], Batch]:
@@ -90,8 +128,10 @@ def make_train_step(model: torch.nn.Module, config: GlobalConfig,
     stream = 0 if mesh is None else mesh.data_index << 48
     gen = torch.Generator(device=device)
 
-    def reseed() -> None:
+    def host() -> None:
+        """The host part of a step: re-seed, then count the update."""
         gen.manual_seed(seed * 2 ** 32 + optimizer.step_count + stream)
+        optimizer.advance()
 
     def step(batch: Batch) -> Batch:
         """The device part of a step: what a CUDA graph captures."""
@@ -109,14 +149,15 @@ def make_train_step(model: torch.nn.Module, config: GlobalConfig,
         optimizer.step()
         return global_losses({"loss_total": loss, **detailed}, group)
 
-    graphs = None if mesh is not None else StepGraphs(step, reseed, gen,
-                                                      optimizer, model)
+    graphs = None if mesh is not None else StepGraphs(model, host, gen,
+                                                      optimizer)
 
     def train_step(batch: Batch) -> Batch:
         with span("train.step"):
             if graphs is not None:
-                return graphs(batch)
-            reseed()
+                return graphs(step, batch, model.storage_version,
+                              model.dtype)
+            host()
             return step(batch)
 
     train_step.graphs = graphs
