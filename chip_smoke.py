@@ -43,6 +43,17 @@ Phases, one JSON line each:
                names the kernel the dispatch rule picks (`route`); where
                both kernels take the shape, the other one is checked and
                timed beside it (`key_tiled_*` or `resident_*`)
+  adamw        the AdamW kernel (csrc/adamw.cu) at the flagship's
+               parameter lists (924 fp32 tensors, 168,018,327 elements,
+               weight decay 0.01) against the 16 plain _foreach passes,
+               bit for bit on p, mu and nu; its `ms` (eager calls, which
+               the host's checks and argument arrays bound), `graph_ms`
+               (a captured graph's replays), `device_ms` and launches per
+               call, `host_ms`, the plain passes' `plain_ms` and
+               `plain_device_ms`,
+               torch._fused_adamw_ as the yardstick (`library_ms`,
+               `library_device_ms`; another update, timed only), and
+               `bound_ms`: 28 bytes an element at the card's bandwidth
   forward_ego  the flagship config (regnety_032 both branches, 160x704
                RGB, 256x256 LiDAR) at seeded random init, batch 1, bf16:
                16 attention launches per forward, p50/p90 latency; the same
@@ -109,7 +120,9 @@ Phases, one JSON line each:
                config.train.batch_size (12), bf16: 10 Trainer steps on one
                fixed synthetic batch (finite, falling loss_total; p50 step
                ms, samples/s, launches per step: scatter-max 1, attention
-               0; peak memory), one eval step (16 attention launches), and
+               0, the AdamW kernel's launches over the trainer's
+               parameters; peak memory), one eval step (16 attention
+               launches, no AdamW launch), and
                a fp32 train-mode forward + loss dict (dropout 0, batch 2)
                on the card vs the same in fp64 on the CPU, rtol 1e-3 /
                atol 1e-4 (the CPU's fp32 error printed beside)
@@ -167,7 +180,8 @@ Phases, one JSON line each:
 runs the named phases alone (after the build) and prints no result; the
 agent phases then use a seeded flagship member of their own.
 
-The main path's launches are counted in the agent, closed_loop,
+The main path's launches are counted (a train step's AdamW launches
+as the optimizer's ``launch_plan`` gives them) in the agent, closed_loop,
 family_forward_ego, config_forward_ego, family_agent, geometric_train,
 pillars_forward_ego, train, cli, lifecycle, bench and parallel phases
 (counts set to 0 just before each run, read just after). The kernels phase also checks attention at the head
@@ -337,10 +351,11 @@ def cuda_ms(fn, reps: int = 50, rounds: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_time(fn, reps: int = 50) -> tuple:
+def device_time(fn, reps: int = 50, match: str = None) -> tuple:
     """torch.profiler over `reps` warm calls: the device time of all the
-    work they launched (kernels and memsets), per call, and the device
-    activities per call. Host cost between launches is left out."""
+    work they launched (kernels and memsets; only the activities whose
+    name holds `match`, where given), per call, and the device activities
+    per call. Host cost between launches is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -357,7 +372,8 @@ def device_time(fn, reps: int = 50) -> tuple:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA and
+                  (match is None or match in e.name)]
         if events:
             return (sum(e.time_range.elapsed_us() for e in events) / 1e3 /
                     reps, len(events) / reps)
@@ -533,6 +549,105 @@ def phase_scatter_max(gen):
     line = next(r for r in rows if r["case"] == SCATTER_LINE_CASE)
     return {k: line[k] for k in (
         "ms", "device_ms", "host_ms", "plain_ms", "library_ms",
+        "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
+        "cuda_launches_per_call")}
+
+
+def adamw_launches(optimizer) -> int:
+    """The AdamW kernel's launches in one update of ``optimizer``: one per
+    launch of ``launch_plan`` over the parameters it owns."""
+    from transfuser_torch.train.train_state import launch_plan
+
+    return len(launch_plan([optimizer.params[i].numel()
+                            for i in optimizer.owned]))
+
+
+def adamw_launches_for(cfg) -> int:
+    """``adamw_launches`` of a one-device trainer of ``cfg``, from the
+    model's parameter shapes on the meta device."""
+    from transfuser_torch.models import LidarCenterNet
+    from transfuser_torch.train.train_state import launch_plan
+
+    model = LidarCenterNet(cfg, device="meta")
+    return len(launch_plan([p.numel() for p in model.parameters()
+                            if p.requires_grad]))
+
+
+def adamw_bound_ms(elements: int) -> float:
+    """p, g, mu and nu read once and p, mu and nu written once, fp32."""
+    return 28 * elements / HBM_BYTES_PER_S * 1e3
+
+
+def phase_adamw():
+    from transfuser_torch.config import GlobalConfig
+    from transfuser_torch.models import LidarCenterNet
+    from transfuser_torch.train.train_state import (fused_update,
+                                                    launch_plan,
+                                                    plain_update)
+
+    shapes = [p.shape for p in LidarCenterNet(
+        GlobalConfig(), device="meta").parameters() if p.requires_grad]
+    elements = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p, g, m, v = ([torch.randn(s, generator=gen, device="cuda")
+                   for s in shapes] for _ in range(4))
+    v = [t.abs_() for t in v]
+    scalars = torch.tensor([1e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3],
+                           device="cuda")
+    args = (scalars, 0.9, 0.999, 1e-8, 0.01)
+    got, want = ([[t.clone() for t in lst] for lst in (p, m, v)]
+                 for _ in range(2))
+    fused_update(got[0], g, got[1], got[2], *args)
+    plain_update(want[0], g, want[1], want[2], *args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for x, y in zip(got, want)
+              for a, b in zip(x, y) if a.numel())
+    if not all(torch.equal(a, b) for x, y in zip(got, want)
+               for a, b in zip(x, y)):
+        raise AssertionError(f"adamw: the kernel differs from the plain "
+                             f"passes, max abs err {err}")
+    del got, want
+    steps = [torch.zeros((), device="cuda") for _ in shapes]
+
+    def kernel():
+        fused_update(p, g, m, v, *args)
+
+    def plain():
+        plain_update(p, g, m, v, *args)
+
+    def library():  # the yardstick only: another update, timed
+        torch._fused_adamw_(p, g, m, v, [], steps, lr=1e-4, beta1=0.9,
+                            beta2=0.999, weight_decay=0.01, eps=1e-8,
+                            amsgrad=False, maximize=False)
+
+    # the kernels alone: the profiler also lists the wrapper's
+    # kernels.adamw span as a device activity
+    dev_ms, per_call = device_time(kernel, reps=20, match="tf_adamw")
+    kernel()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        kernel()
+    torch.cuda.current_stream().wait_stream(side)
+    row = dict(case="flagship", tensors=len(shapes), elements=elements,
+               max_abs_err=err, ms=cuda_ms(kernel, reps=20),
+               graph_ms=cuda_ms(graph.replay, reps=20),
+               device_ms=dev_ms, cuda_launches_per_call=per_call,
+               launches_per_call=len(launch_plan(
+                   [math.prod(s) for s in shapes])),
+               host_ms=host_ms(kernel, reps=50),
+               plain_ms=cuda_ms(plain, reps=10),
+               plain_device_ms=device_time(plain, reps=10)[0],
+               library_ms=cuda_ms(library, reps=20),
+               library_device_ms=device_time(library, reps=20)[0],
+               bound_ms=adamw_bound_ms(elements), bound_by="bytes")
+    row["roofline"] = row["bound_ms"] / dev_ms
+    row["tb_per_s"] = 28 * elements / dev_ms / 1e9
+    emit("kernels", kernels=["adamw"], adamw=[row])
+    return {k: row[k] for k in (
+        "ms", "graph_ms", "device_ms", "host_ms", "plain_ms",
+        "plain_device_ms", "library_ms",
         "library_device_ms", "bound_ms", "bound_by", "max_abs_err",
         "cuda_launches_per_call")}
 
@@ -1192,7 +1307,8 @@ def phase_family_forward_ego():
         launches = dict(kernels.launches)  # ... and ends here
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         per_forward = {k: v / n for k, v in launches.items()}
-        if per_forward != {"attention": want, "scatter_max": 0}:
+        if per_forward != {"attention": want, "scatter_max": 0,
+                           "adamw": 0}:
             raise AssertionError(f"{name}: launches per forward_ego "
                                  f"{per_forward}, expected {want} attention")
         if not (torch.isfinite(wp_bf).all() and
@@ -1280,7 +1396,8 @@ def phase_config_forward_ego(n=20):
             times.append((time.perf_counter() - t0) * 1e3)
         launches = dict(kernels.launches)  # ... and ends here
         per_forward = {k: v / n for k, v in launches.items()}
-        if per_forward != {"attention": 16, "scatter_max": 0}:
+        if per_forward != {"attention": 16, "scatter_max": 0,
+                           "adamw": 0}:
             raise AssertionError(f"{name}: launches per forward_ego "
                                  f"{per_forward}, expected 16 attention")
         # the attention kernels' device time in one forward (its 16
@@ -1404,7 +1521,7 @@ def phase_family_agents():
         if not np.isfinite(controls).all():
             raise AssertionError(f"{backbone}: non-finite controls")
         expected = {"attention": per_frame * len(compute_ms),
-                    "scatter_max": 0}
+                    "scatter_max": 0, "adamw": 0}
         if launches != expected:
             raise AssertionError(f"{backbone} agent launches {launches}, "
                                  f"expected {expected}")
@@ -1443,8 +1560,11 @@ def phase_geometric_train(steps=3):
         times.append((time.perf_counter() - t0) * 1e3)
         totals.append(float(metrics["loss_total"]))
     launches = dict(kernels.launches)  # ... and ends here
-    if launches != {"attention": 0, "scatter_max": 0}:
-        raise AssertionError(f"geometric train launches {launches}")
+    want = {"attention": 0, "scatter_max": 0,
+            "adamw": steps * adamw_launches(trainer.optimizer)}
+    if launches != want:
+        raise AssertionError(f"geometric train launches {launches}, "
+                             f"expected {want}")
     if not np.isfinite(totals).all():
         raise AssertionError(f"non-finite geometric loss_total {totals}")
     emit("geometric_train", batch=bsz, steps=steps, step_ms=times,
@@ -1504,7 +1624,7 @@ def phase_pillars_forward_ego(cfg):
         times.append((time.perf_counter() - t0) * 1e3)
     launches = dict(kernels.launches)  # ... and ends here
     per_forward = {k: v / n for k, v in launches.items()}
-    if per_forward != {"attention": 16, "scatter_max": 1}:
+    if per_forward != {"attention": 16, "scatter_max": 1, "adamw": 0}:
         raise AssertionError(f"pillar forward_ego launches per forward "
                              f"{per_forward}, expected 16 attention and 1 "
                              "scatter_max")
@@ -1567,10 +1687,11 @@ def phase_train(cfg, steps=10, profile=False):
     losses = [{k: float(v) for k, v in m.items()} for m in losses]
     totals = [m["loss_total"] for m in losses]
     per_step = {k: v / steps for k, v in launches.items()}
-    if per_step != {"attention": 0, "scatter_max": 1}:
+    adamw = adamw_launches(trainer.optimizer)
+    if per_step != {"attention": 0, "scatter_max": 1, "adamw": adamw}:
         raise AssertionError(f"train launches per step {per_step}, expected "
-                             "0 attention (dropout takes explicit probs) "
-                             "and 1 scatter_max")
+                             "0 attention (dropout takes explicit probs), "
+                             f"1 scatter_max and {adamw} adamw")
     if not all(np.isfinite(list(m.values())).all() for m in losses):
         raise AssertionError(f"non-finite train losses {losses}")
     if not totals[-1] < totals[0]:
@@ -1583,7 +1704,7 @@ def phase_train(cfg, steps=10, profile=False):
     ev = trainer.eval_step(batch)
     torch.cuda.synchronize()
     eval_launches = dict(kernels.launches)
-    if eval_launches != {"attention": 16, "scatter_max": 1}:
+    if eval_launches != {"attention": 16, "scatter_max": 1, "adamw": 0}:
         raise AssertionError(f"eval step launches {eval_launches}")
     for k, v in eval_launches.items():
         launches[k] += v
@@ -1881,8 +2002,12 @@ def phase_cli():
             for k, v in kernels.launches.items():  # ... and ends here
                 launches[k] += v
             run_dir = os.path.join(logs, name)
-            want = {"train": {"attention": 0, "scatter_max": int(pillars)},
-                    "eval": {"attention": 16, "scatter_max": int(pillars)}}
+            adamw = adamw_launches_for(
+                pillar_config() if pillars else GlobalConfig())
+            want = {"train": {"attention": 0, "scatter_max": int(pillars),
+                              "adamw": adamw},
+                    "eval": {"attention": 16, "scatter_max": int(pillars),
+                             "adamw": 0}}
             counts = {"train": len(per_step["train"]),
                       "eval": len(per_step["eval"])}
             if counts != {"train": 8, "eval": 2}:
@@ -2483,6 +2608,7 @@ def parallel_rank(rank: int, job_path: str) -> None:
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     out["dp_train_bf16_launches"] = add(kernels.launches)
+    out["dp_train_bf16_adamw"] = 2 * adamw_launches(trainer.optimizer)
     out["dp_train_bf16_loss_total"] = [m["loss_total"] for m in losses]
     out["dp_train_bf16_step_ms"] = times
     kernels.reset_launches()
@@ -2523,6 +2649,7 @@ def parallel_rank(rank: int, job_path: str) -> None:
     out["tp_train_fp32"] = as_floats(trainer.train_step(batch))
     sync()
     out["tp_train_fp32_launches"] = add(kernels.launches)
+    out["tp_train_fp32_adamw"] = adamw_launches(trainer.optimizer)
     del trainer, batch
     # bf16: the 2-head shards' rows go through the wrapper's padded copy
     trainer = Trainer(cfg0, mesh=tp, dtype=torch.bfloat16, device=device)
@@ -2564,6 +2691,8 @@ def parallel_rank(rank: int, job_path: str) -> None:
     out["pillar_ms_per_step"] = \
         (time.perf_counter() - t0) * 1e3 / PILLAR_ZERO_STEPS
     out["pillar_launches"] = add(kernels.launches)
+    out["pillar_adamw"] = PILLAR_ZERO_STEPS * (
+        adamw_launches(on.optimizer) + adamw_launches(off.optimizer))
     out["pillar_loss_total"] = float(loss)
     theirs = dict(off.model.named_parameters())
     diffs = {k: float((p.detach() - theirs[k].detach()).abs().max())
@@ -2700,19 +2829,30 @@ def phase_parallel():
                        res["tp_eval_fp32"], ref_eval),
                    "tp_train_dropout_fp32_max_abs_err": dict_err(
                        res["tp_train_fp32"], ref_dropout)}
+            # a train step's AdamW launches: the rank's own launch plan
+            # over the parameters it owns, as the rank counted them
             want = {"dp_eval_fp32_launches": {"attention": 16,
-                                              "scatter_max": 0},
-                    "dp_train_bf16_launches": {"attention": 0,
-                                               "scatter_max": 0},
+                                              "scatter_max": 0, "adamw": 0},
+                    "dp_train_bf16_launches": {
+                        "attention": 0, "scatter_max": 0,
+                        "adamw": res["dp_train_bf16_adamw"]},
                     "dp_eval_bf16_launches": {"attention": 16,
-                                              "scatter_max": 0},
-                    "tp_eval_launches": {"attention": 16, "scatter_max": 0},
-                    "tp_train_fp32_launches": {"attention": 0,
-                                               "scatter_max": 0},
+                                              "scatter_max": 0, "adamw": 0},
+                    "tp_eval_launches": {"attention": 16, "scatter_max": 0,
+                                         "adamw": 0},
+                    "tp_train_fp32_launches": {
+                        "attention": 0, "scatter_max": 0,
+                        "adamw": res["tp_train_fp32_adamw"]},
                     "tp_eval_bf16_launches": {"attention": 16,
-                                              "scatter_max": 0}}
+                                              "scatter_max": 0, "adamw": 0}}
             want["pillar_launches"] = {"attention": 0,
-                                       "scatter_max": PILLAR_ZERO_STEPS}
+                                       "scatter_max": PILLAR_ZERO_STEPS,
+                                       "adamw": res["pillar_adamw"]}
+            if min(res[k] for k in ("dp_train_bf16_adamw",
+                                    "tp_train_fp32_adamw",
+                                    "pillar_adamw")) < 1:
+                raise AssertionError(f"rank {res['rank']}: a train step "
+                                     "without an AdamW launch")
             for key, counts in want.items():
                 if res[key] != counts:
                     raise AssertionError(f"rank {res['rank']} {key} "
@@ -2839,6 +2979,7 @@ def main() -> int:
     numbers = {"attention": phase_kernels()}
     gen = torch.Generator(device="cuda").manual_seed(1)
     numbers["scatter_max"] = phase_scatter_max(gen)
+    numbers["adamw"] = phase_adamw()
     check_attention_refuses_grad(gen)
 
     cfg = GlobalConfig()

@@ -35,6 +35,7 @@ from transfuser_torch.data.synthetic import synthetic_batch
 from transfuser_torch.ops import kernels
 from transfuser_torch.train.checkpoint import restore_checkpoint, \
     save_checkpoint
+from transfuser_torch.train.train_state import launch_plan
 from transfuser_torch.train.trainer import Trainer, make_train_step
 
 BATCH = 4
@@ -84,13 +85,15 @@ def _snapshot(trainer) -> dict:
 def _run(trainer, step, batches, scatter_max: int) -> dict:
     """The steps' losses (read after the last step: each call's own copy)
     and the state they leave; each call launches ``scatter_max``
-    scatter-max kernels and no attention kernel."""
+    scatter-max kernels, no attention kernel and the AdamW kernel's
+    launches over the trainer's parameters."""
+    adamw = len(launch_plan([p.numel() for p in trainer.optimizer.params]))
     losses = []
     for b in batches:
         before = dict(kernels.launches)
         losses.append(step(b)["loss_total"])
         assert {k: n - before[k] for k, n in kernels.launches.items()} == \
-            {"attention": 0, "scatter_max": scatter_max}
+            {"attention": 0, "scatter_max": scatter_max, "adamw": adamw}
     torch.cuda.synchronize()
     return dict(loss=[float(x) for x in losses], **_snapshot(trainer))
 

@@ -15,13 +15,18 @@ The schedule is the JAX package's: ×``schedule_gamma`` drops at epochs
 0 -> lr warmup joined by ``optax.join_schedules``, which also shifts the
 drops by the warmup (train_state.py:39-45 there), reproduced here.
 
-The update runs on the device with ``torch._foreach_*`` ops over all
-parameters at once; the step count lives on the host, so no step syncs.
-An update is ``advance()`` then ``step()``. ``advance`` is its host part:
-count it, and write its learning rate and bias corrections into a small
-device tensor with ``fill_``, whose value travels as a launch argument.
-``step`` is its device part, which reads that tensor, so a CUDA graph of
-the training step holds it and every replay follows the host part.
+The update runs on the device over all parameters at once; the step
+count lives on the host, so no step syncs. An update is ``advance()``
+then ``step()``. ``advance`` is its host part: count it, and write its
+learning rate and bias corrections into a small device tensor with
+``fill_``, whose value travels as a launch argument. ``step`` is its
+device part, which reads that tensor, so a CUDA graph of the training
+step holds it and every replay follows the host part. On a card the
+device part is one pass of the hand-written kernel ``csrc/adamw.cu``
+(``fused_update``: p, g, mu and nu read once, p, mu and nu written once,
+in ``launch_plan``'s few launches); on the CPU it is ``plain_update``,
+16 ``torch._foreach_*`` passes. On a card the two are equal bit for bit
+(``tests/test_torch_adamw_cuda.py``).
 
 Under a mesh (``parallel/sharding.py``):
   * ZeRO-1 (``zero=True`` over a data group of more than one rank): whole
@@ -43,13 +48,15 @@ and keeps this rank's share.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Optional, Sequence
+import ctypes
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..config import GlobalConfig
+from ..ops import kernels
 from ..parallel import comm
 from ..parallel.sharding import (Mesh, TensorParallel, gather_tensor,
                                  shard_tensor, zero_plan)
@@ -144,6 +151,128 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
     scaled = [(g / g_norm) * max_norm for g in grads]
     return [torch.where(g_norm < max_norm, g, s)
             for g, s in zip(grads, scaled)]
+
+
+# csrc/adamw.cu's layout: a launch takes at most MAX_TENSORS tensors, each
+# cut into chunks of CHUNK elements, and counts both in 32-bit ints
+MAX_TENSORS = 800
+CHUNK = 4096
+INT_MAX = 2 ** 31 - 1
+_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ctypes.c_ulonglong),
+             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+             ctypes.c_void_p] + [ctypes.c_float] * 6 + [ctypes.c_void_p]
+Launch = Tuple[int, int, List[int]]
+
+
+def launch_plan(numels: Sequence[int]) -> List[Launch]:
+    """The kernel's launches over tensors of ``numels`` elements, in order:
+    each ``(first, end, chunk_start)`` takes tensors ``first`` to
+    ``end - 1``, and ``chunk_start[k]`` is the launch's first chunk of its
+    k-th tensor, ``chunk_start[-1]`` its number of chunks. The tensors are
+    split over as few launches as ``MAX_TENSORS`` allows, evenly; a launch
+    whose tensors are all empty is left out."""
+    n = len(numels)
+    count = -(-n // MAX_TENSORS)
+    plan = []
+    for i in range(count):
+        first, end = i * n // count, (i + 1) * n // count
+        starts = [0]
+        for size in numels[first:end]:
+            if size > INT_MAX:
+                raise ValueError(f"a tensor of {size} elements is beyond the "
+                                 "AdamW kernel's 32-bit sizes")
+            starts.append(starts[-1] + -(-size // CHUNK))
+        if starts[-1] > INT_MAX:
+            raise ValueError(f"{starts[-1]} chunks are beyond the AdamW "
+                             "kernel's 32-bit chunk index")
+        if starts[-1]:
+            plan.append((first, end, starts))
+    return plan
+
+
+def plain_update(params: List[torch.Tensor], grads: List[torch.Tensor],
+                 mu: List[torch.Tensor], nu: List[torch.Tensor],
+                 scalars: torch.Tensor, b1: float, b2: float, eps: float,
+                 weight_decay: float) -> None:
+    """AdamW in place, as 16 ``torch._foreach_*`` passes on any device;
+    ``scalars``: the learning rate, 1 - b1^t and 1 - b2^t."""
+    lr, bc1, bc2 = scalars.unbind()
+    # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
+    torch._foreach_mul_(mu, b1)
+    torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+    torch._foreach_mul_(nu, b2)
+    torch._foreach_add_(nu, torch._foreach_mul(
+        torch._foreach_mul(grads, grads), 1 - b2))
+    mu_hat = torch._foreach_div(mu, bc1)
+    nu_hat = torch._foreach_div(nu, bc2)
+    denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), eps)
+    update = torch._foreach_div(mu_hat, denom)
+    if weight_decay:
+        torch._foreach_add_(update, torch._foreach_mul(params, weight_decay))
+    torch._foreach_sub_(params, torch._foreach_mul(update, lr))
+
+
+def _check_update(params, grads, mu, nu, scalars) -> None:
+    """What the AdamW kernel takes: equal lists of float32, contiguous
+    tensors, each of its param's shape, and 3 scalars, all on one CUDA
+    device. Raises on anything else."""
+    device = scalars.device
+    if scalars.dtype != torch.float32 or scalars.shape != (3,) or \
+            not scalars.is_contiguous():
+        raise TypeError("the AdamW kernel takes 3 contiguous float32 "
+                        f"scalars; got {scalars.dtype} {tuple(scalars.shape)}")
+    if not len(params) == len(grads) == len(mu) == len(nu):
+        raise ValueError(f"{len(params)} params, {len(grads)} grads, "
+                         f"{len(mu)} mu and {len(nu)} nu")
+    for i, group in enumerate(zip(params, grads, mu, nu)):
+        shape = group[0].shape
+        for name, t in zip(("param", "grad", "mu", "nu"), group):
+            if t.device != device:
+                raise ValueError(f"{name} {i} is on {t.device}, the "
+                                 f"scalars on {device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"the AdamW kernel takes float32; {name} "
+                                f"{i} is {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"the AdamW kernel needs contiguous "
+                                 f"tensors; {name} {i} has strides "
+                                 f"{t.stride()}")
+            if t.shape != shape:
+                raise ValueError(f"{name} {i} has shape {tuple(t.shape)}, "
+                                 f"its param {tuple(shape)}")
+    if device.type != "cuda":
+        raise ValueError(f"the AdamW kernel runs on CUDA, not {device}")
+
+
+def fused_update(params: List[torch.Tensor], grads: List[torch.Tensor],
+                 mu: List[torch.Tensor], nu: List[torch.Tensor],
+                 scalars: torch.Tensor, b1: float, b2: float, eps: float,
+                 weight_decay: float) -> None:
+    """``plain_update`` on a card as the hand-written kernel
+    ``csrc/adamw.cu``: one pass, in ``launch_plan``'s launches, each
+    counted in ``kernels.launches["adamw"]``. The tensors' addresses travel
+    as launch arguments, so a captured graph keeps them."""
+    _check_update(params, grads, mu, nu, scalars)
+    with span("kernels.adamw"):
+        fn = kernels.function("adamw", "tf_adamw_step_launch", _ARGTYPES)
+        consts = [ctypes.c_float(x) for x in
+                  (b1, 1 - b1, b2, 1 - b2, eps, weight_decay)]
+        numels = [p.numel() for p in params]
+        for first, end, starts in launch_plan(numels):
+            cut = slice(first, end)
+            ptrs = [t.data_ptr() for four in zip(params[cut], grads[cut],
+                                                   mu[cut], nu[cut])
+                    for t in four]
+            n = end - first
+            err = kernels.call(
+                fn, scalars.device, n, (ctypes.c_ulonglong * (4 * n))(*ptrs),
+                (ctypes.c_int * n)(*numels[cut]),
+                (ctypes.c_int * (n + 1))(*starts), scalars.data_ptr(),
+                *consts)
+            if err != 0:
+                raise RuntimeError(f"AdamW kernel launch failed: CUDA error "
+                                   f"{err} over tensors {first}-{end - 1}")
+            kernels.count_launch("adamw")
 
 
 class AdamW:
@@ -283,26 +412,14 @@ class AdamW:
         scalars that ``advance``, run first, wrote."""
         grads = self.clipped_grads()
         with span("train.update"):
-            b1, b2 = self.b1, self.b2
             own = self.owned
-            params = [self.params[i] for i in own]
-            grads = [grads[i] for i in own]
-            mu = [self.mu[i] for i in own]
-            nu = [self.nu[i] for i in own]
-            # mu = (1 - b1) g + b1 mu; nu = (1 - b2) g^2 + b2 nu
-            torch._foreach_mul_(mu, b1)
-            torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
-            torch._foreach_mul_(nu, b2)
-            torch._foreach_add_(nu, torch._foreach_mul(
-                torch._foreach_mul(grads, grads), 1 - b2))
-            mu_hat = torch._foreach_div(mu, self._bc1)
-            nu_hat = torch._foreach_div(nu, self._bc2)
-            denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
-            update = torch._foreach_div(mu_hat, denom)
-            if self.weight_decay:
-                torch._foreach_add_(update, torch._foreach_mul(
-                    params, self.weight_decay))
-            torch._foreach_sub_(params, torch._foreach_mul(update, self._lr))
+            if own:
+                update = fused_update if self.scalars.is_cuda else \
+                    plain_update
+                update([self.params[i] for i in own], [grads[i] for i in own],
+                       [self.mu[i] for i in own], [self.nu[i] for i in own],
+                       self.scalars, self.b1, self.b2, self.eps,
+                       self.weight_decay)
             if self.zero:
                 self._broadcast_from_owners(self.params)
 
